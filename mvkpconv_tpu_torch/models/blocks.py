@@ -1,0 +1,313 @@
+"""KPConv network blocks, rigid eval path (``mvkpconv_tpu/models/blocks.py``).
+
+Dense batched layout ``(B, N, C)``, shadow neighbor indices (== N_support ⇒
+zero feature row), masked batch norm and the KPConv math of the JAX
+package. Submodules carry the flax scope names (``KPConv``, ``bn``,
+``unary1``, ``mlp`` …) so the weight bridge is a name-for-name walk.
+
+Numerics follow the JAX package op by op:
+  * ``compute_dtype``: the KP contraction (B,Nq,K,M)×(B,Nq,K,C) and its
+    (M·Cin, Cout) product — operands rounded to ``compute_dtype``, products
+    accumulated in f32, the output f32;
+  * float32: ``UnaryBlock``'s Dense, ``MaskedBatchNorm`` and all geometry
+    (rigid influence and its distances).
+Deformable and modulated blocks are not ported yet (ROADMAP queue 1, P7).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
+from mvkpconv_tpu_torch.ops.gather import group_points, pad_shadow_row
+
+_DEFORM_TODO = "deformable / modulated KPConv is not ported yet (ROADMAP queue 1, P7 item 2)"
+
+
+def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather (B, Ns, C) features at (B, Nq, K) indices with shadow → 0."""
+    return group_points(pad_shadow_row(x), idx)
+
+
+def max_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Max over neighbor features; shadow slots contribute zeros."""
+    return gather_neighbors(x, idx).amax(dim=-2)
+
+
+def closest_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Features of the closest (first) neighbor."""
+    return gather_neighbors(x, idx[..., :1])[..., 0, :]
+
+
+def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """sqrt with value 0 (and a finite gradient) at x ≤ 1e-30: padded rows
+    put neighbors exactly on the center kernel point."""
+    return torch.where(x > 1e-30, torch.sqrt(x.clamp(min=1e-30)), torch.zeros_like(x))
+
+
+def _kp_sq_dists(neighbors: torch.Tensor, kernel_pts: torch.Tensor) -> torch.Tensor:
+    """(B,Nq,K,M) squared distances |n − y|² = |n|² − 2 n·y + |y|², f32."""
+    kp = kernel_pts.float()
+    cross = torch.matmul(neighbors.float(), kp.t())
+    n2 = (neighbors * neighbors).sum(dim=-1)
+    y2 = (kp * kp).sum(dim=-1)
+    return (n2[..., None] - 2.0 * cross + y2).clamp(min=0.0)
+
+
+def _influence(sq, kp_extent: float, influence: str, aggregation: str):
+    if influence == "constant":
+        all_w = torch.ones_like(sq)
+    elif influence == "linear":
+        all_w = (1.0 - _safe_sqrt(sq) / kp_extent).clamp(min=0.0)
+    elif influence == "gaussian":
+        sigma = kp_extent * 0.3
+        all_w = torch.exp(-sq / (2.0 * sigma**2))
+    else:
+        raise ValueError(f"unknown KP influence {influence!r}")
+    if aggregation == "closest":
+        closest = torch.argmin(sq, dim=-1)
+        all_w = all_w * F.one_hot(closest, sq.shape[-1]).to(all_w.dtype)
+    elif aggregation != "sum":
+        raise ValueError(f"unknown aggregation mode {aggregation!r}")
+    return all_w
+
+
+def rigid_influence(
+    q_pts, s_pts, neighb_inds, kernel_pts, kp_extent: float,
+    influence: str = "linear", aggregation: str = "sum",
+) -> torch.Tensor:
+    """Rigid KP influence weights (B, Nq, K, M), f32, shared by every rigid
+    conv block of a pyramid level. Shadow neighbors land on a +1e6 support
+    row and get zero influence."""
+    s_pad = torch.cat([s_pts, torch.full_like(s_pts[:, :1], 1e6)], dim=1)
+    neighbors = group_points(s_pad, neighb_inds) - q_pts[:, :, None, :]
+    return _influence(_kp_sq_dists(neighbors, kernel_pts), kp_extent, influence, aggregation)
+
+
+def _contract(all_w, nx, weights, compute_dtype):
+    """einsum 'bqkm,bqkc->bqmc' then the (M·Cin, Cout) product, both with
+    operands in ``compute_dtype`` and f32 accumulation; f32 out."""
+    m, cin, cout = weights.shape
+    wf = torch.einsum(
+        "bqkm,bqkc->bqmc", all_w.to(compute_dtype), nx.to(compute_dtype)
+    )  # f32-accumulated; a bf16 result is the f32 sum rounded once
+    wf = wf.reshape(wf.shape[0], wf.shape[1], m * cin).to(compute_dtype).float()
+    return torch.matmul(wf, weights.reshape(m * cin, cout).to(compute_dtype).float())
+
+
+def kpconv_apply(
+    q_pts: torch.Tensor,
+    s_pts: torch.Tensor,
+    neighb_inds: torch.Tensor,
+    x: torch.Tensor,
+    kernel_pts: torch.Tensor,
+    weights: torch.Tensor,
+    kp_extent: float,
+    influence: str = "linear",
+    aggregation: str = "sum",
+    compute_dtype: torch.dtype = torch.float32,
+    precomputed_influence: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Rigid kernel point convolution → (B, Nq, Cout) f32.
+
+    With ``precomputed_influence`` (B, Nq, K, M) the geometry is skipped
+    (features-only gather + contraction); otherwise positions ⊕ features
+    ride one gather and the influence is computed here.
+    """
+    if precomputed_influence is not None:
+        nx = group_points(pad_shadow_row(x), neighb_inds)
+        return _contract(precomputed_influence, nx, weights, compute_dtype)
+    s_pad = torch.cat([s_pts, torch.full_like(s_pts[:, :1], 1e6)], dim=1)
+    payload = torch.cat([s_pad, pad_shadow_row(x.to(s_pts.dtype))], dim=-1)
+    gathered = group_points(payload, neighb_inds)
+    neighbors = gathered[..., :3] - q_pts[:, :, None, :]
+    all_w = _influence(
+        _kp_sq_dists(neighbors, kernel_pts), kp_extent, influence, aggregation
+    )
+    return _contract(all_w, gathered[..., 3:], weights, compute_dtype)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over valid points only; eval uses the running statistics:
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32. With
+    ``use_bn=False`` it is a bias only. Training statistics (masked, with
+    the reference's momentum 0.02) are not ported yet."""
+
+    def __init__(self, num_features: int, use_bn: bool = True, epsilon: float = 1e-5):
+        super().__init__()
+        self.use_bn = use_bn
+        self.epsilon = epsilon
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        if use_bn:
+            self.weight = nn.Parameter(torch.ones(num_features))
+            self.register_buffer("running_mean", torch.zeros(num_features))
+            self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None):
+        if not self.use_bn:
+            return x + self.bias
+        if self.training:
+            raise NotImplementedError(
+                "MaskedBatchNorm training statistics are not ported yet "
+                "(ROADMAP queue 1, P6); call .eval()"
+            )
+        return (x - self.running_mean) * torch.rsqrt(
+            self.running_var + self.epsilon
+        ) * self.weight + self.bias
+
+
+class UnaryBlock(nn.Module):
+    """1×1 MLP (f32) + masked BN + LeakyReLU(0.1)."""
+
+    def __init__(self, in_dim: int, out_dim: int, use_bn: bool = True,
+                 no_relu: bool = False):
+        super().__init__()
+        self.mlp = nn.Linear(in_dim, out_dim, bias=False)
+        self.bn = MaskedBatchNorm(out_dim, use_bn)
+        self.no_relu = no_relu
+
+    def forward(self, x, mask=None):
+        x = self.bn(self.mlp(x.float()), mask)
+        return x if self.no_relu else F.leaky_relu(x, 0.1)
+
+
+class KPConvLayer(nn.Module):
+    """The learned rigid KPConv op: kernel points + (M, Cin, Cout) weights.
+
+    Kernel points span ``radius`` (the unit disposition times the conv
+    radius); ``kp_extent`` sets the influence width.
+    """
+
+    def __init__(self, in_dim: int, out_dim: int, radius: float,
+                 kp_extent: float, num_kernel_points: int = 15,
+                 influence: str = "linear", aggregation: str = "sum",
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.kp_extent = kp_extent
+        self.influence = influence
+        self.aggregation = aggregation
+        self.compute_dtype = compute_dtype
+        kp = kernel_point_positions(radius, num_kernel_points)
+        self.register_buffer("kernel_pts", torch.from_numpy(kp), persistent=False)
+        self.weights = nn.Parameter(torch.zeros(num_kernel_points, in_dim, out_dim))
+
+    def forward(self, q_pts, s_pts, neighb_inds, x, precomputed_influence=None):
+        return kpconv_apply(
+            q_pts, s_pts, neighb_inds, x, self.kernel_pts, self.weights,
+            self.kp_extent, self.influence, self.aggregation,
+            compute_dtype=self.compute_dtype,
+            precomputed_influence=precomputed_influence,
+        )
+
+
+def _conv_site(block_name: str, layer: int, pyr):
+    """(query points, neighbor indices, output mask, influence key)."""
+    if "strided" in block_name:
+        return pyr.points[layer + 1], pyr.pools[layer], pyr.masks[layer + 1], ("pool", layer)
+    return pyr.points[layer], pyr.neighbors[layer], pyr.masks[layer], ("conv", layer)
+
+
+def _kpconv_layer(cfg, in_dim, out_dim, radius):
+    # every tail form, and the fused kernel, is the einsum contraction here
+    cfg.port_option("kpconv_tail")
+    cfg.port_option("use_pallas_kpconv")
+    return KPConvLayer(
+        in_dim, out_dim, radius,
+        kp_extent=radius * cfg.kp_extent / cfg.conv_radius,
+        num_kernel_points=cfg.num_kernel_points,
+        influence=cfg.kp_influence,
+        aggregation=cfg.aggregation_mode,
+        compute_dtype=cfg.compute_dtype,
+    )
+
+
+class SimpleBlock(nn.Module):
+    """KPConv → BN → LeakyReLU, output out_dim // 2."""
+
+    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
+        super().__init__()
+        self.block_name, self.layer_ind = block_name, layer_ind
+        self.KPConv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius)
+        self.bn = MaskedBatchNorm(out_dim // 2, cfg.use_batch_norm)
+
+    def forward(self, x, pyr, infl=None):
+        q, inds, out_mask, key = _conv_site(self.block_name, self.layer_ind, pyr)
+        pi = infl.get(key) if infl is not None else None
+        x = self.KPConv(q, pyr.points[self.layer_ind], inds, x, precomputed_influence=pi)
+        return F.leaky_relu(self.bn(x, out_mask), 0.1)
+
+
+class ResnetBottleneckBlock(nn.Module):
+    """unary↓4 → KPConv → unary↑ (+ max-pooled shortcut on strided blocks)."""
+
+    def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
+        super().__init__()
+        self.block_name, self.layer_ind = block_name, layer_ind
+        mid = out_dim // 4
+        bn = cfg.use_batch_norm
+        self.unary1 = UnaryBlock(in_dim, mid, bn) if in_dim != mid else None
+        self.KPConv = _kpconv_layer(cfg, mid, mid, radius)
+        self.bn_conv = MaskedBatchNorm(mid, bn)
+        self.unary2 = UnaryBlock(mid, out_dim, bn, no_relu=True)
+        self.unary_shortcut = (
+            UnaryBlock(in_dim, out_dim, bn, no_relu=True) if in_dim != out_dim else None
+        )
+
+    def forward(self, x, pyr, infl=None):
+        l = self.layer_ind
+        q, inds, out_mask, key = _conv_site(self.block_name, l, pyr)
+        pi = infl.get(key) if infl is not None else None
+        h = x if self.unary1 is None else self.unary1(x, pyr.masks[l])
+        h = self.KPConv(q, pyr.points[l], inds, h, precomputed_influence=pi)
+        h = F.leaky_relu(self.bn_conv(h, out_mask), 0.1)
+        h = self.unary2(h, out_mask)
+        shortcut = max_pool(x, inds) if "strided" in self.block_name else x
+        if self.unary_shortcut is not None:
+            shortcut = self.unary_shortcut(shortcut, out_mask)
+        return F.leaky_relu(h + shortcut, 0.1)
+
+
+class NearestUpsampleBlock(nn.Module):
+    """Copy features from the closest coarser point."""
+
+    def __init__(self, layer_ind: int):
+        super().__init__()
+        self.layer_ind = layer_ind  # level being upsampled TO is layer_ind - 1
+
+    def forward(self, x, pyr):
+        return closest_pool(x, pyr.upsamples[self.layer_ind - 1])
+
+
+class MaxPoolBlock(nn.Module):
+    def __init__(self, layer_ind: int):
+        super().__init__()
+        self.layer_ind = layer_ind
+
+    def forward(self, x, pyr):
+        return max_pool(x, pyr.pools[self.layer_ind + 1])
+
+
+def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
+                  layer_ind: int, cfg) -> nn.Module:
+    """Instantiate a block by architecture-list name."""
+    if "deform" in block_name:
+        raise NotImplementedError(_DEFORM_TODO)
+    if block_name == "unary":
+        return UnaryBlock(in_dim, out_dim, cfg.use_batch_norm)
+    if block_name in ("simple", "simple_strided"):
+        return SimpleBlock(block_name, in_dim, out_dim, radius, layer_ind, cfg)
+    if block_name in ("resnetb", "resnetb_strided"):
+        return ResnetBottleneckBlock(block_name, in_dim, out_dim, radius, layer_ind, cfg)
+    if block_name == "nearest_upsample":
+        return NearestUpsampleBlock(layer_ind)
+    if block_name in ("max_pool", "max_pool_wide"):
+        return MaxPoolBlock(layer_ind)
+    if block_name == "global_average":
+        raise NotImplementedError(
+            "global_average (the KPCNN baseline) is not ported yet (ROADMAP queue 1, P7 item 3)"
+        )
+    raise ValueError(f"unknown block name in architecture: {block_name!r}")
