@@ -20,13 +20,32 @@ Phases, each printed as one JSON line:
   6. full: the slice at the bench configuration (B=4, N0=16384, 5 levels,
      K=30, 5 views of 120×160, width 128, bf16) with seeded random weights:
      finite logits of shape (4, 16384, 20), 13 radius top-k launches and 1
-     pixel top-k launch per forward, ms per forward and points/s.
+     pixel top-k launch per forward, ms per forward and points/s;
+  7. k3_*: the gather-VJP segment sum against its plain version at the
+     bench configuration's level-0 gather sites (the pyramid's voxel-sorted
+     indices, seeded normal rows, f32 and bf16): each element within
+     2⁻¹⁸ · Σ|rows into its target| (the atomics add in an order that
+     varies from run to run), the shadow row on its own; kernel and plain
+     times;
+  8. train_parity: 3 train steps on the card (kernels, gather VJP
+     'banded') against the CPU (plain versions) from the same weights,
+     f32, TF32 off, a batch without padded rows: each step's loss within
+     1e-5 relative, every parameter after each step within rtol 1e-3, atol
+     1e-5·(the largest |param| of the model); at the configuration of
+     phase 5 each step starts from the CPU's state, at a 2-level one the
+     two run free (see ``check_train_parity``);
+  9. train_full: the train step at the bench configuration (bf16, gather
+     VJP 'banded_bf16'): a warm-up step, then 5 timed steps; loss finite,
+     parameters outside ``net_2d`` changed and ``net_2d`` unchanged bit for
+     bit, one K3 launch per trunk gather whose features need a gradient
+     (counted from the plan), ms per step, points/s and peak memory.
 
 Then one JSON line with every kernel's figures, the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 
+import copy
 import json
 import subprocess
 import sys
@@ -36,6 +55,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TIE_REL = 2.0**-20  # a few float32 ulps
 PARITY_REL = 1e-4
+SEGSUM_REL = 2.0**-18  # of Σ|rows| into each target
+TRAIN_LOSS_REL = 1e-5
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL_REL = 1e-3, 1e-5
 
 
 def emit(obj):
@@ -145,6 +167,111 @@ def check_k2(name, points, image_xyz, iu0, iv0, window, k, results):
     results.append(row)
 
 
+def check_k3(name, index, ns, c, gen, results):
+    """K3 against its plain version on one gather site, f32 and bf16 rows.
+
+    The atomics add in an order that varies from run to run, and two orders
+    of n f32 terms differ by at most 2(n − 1)·2⁻²⁴·Σ|terms|. So each output
+    element is held to 2⁻¹⁸·Σ|rows into its target| (the plain version on
+    |rows|): a bound for targets of up to 33 rows, about the neighbor lists'
+    length, and far above the usual error of the shadow row's thousands. A
+    kernel that rounded rows to bf16 (2⁻⁹) or dropped one would exceed it
+    at every site. The shadow row, which the kernel sums per block, is
+    reported on its own."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
+
+    rows32 = torch.randn(index.numel(), c, generator=gen, device=index.device)
+    for rows in (rows32, rows32.to(torch.bfloat16)):
+        got = k3.segsum(rows, index, ns)
+        want = k3.segsum_plain(rows, index, ns)
+        allowance = SEGSUM_REL * k3.segsum_plain(rows.abs(), index, ns) + 1e-30
+        over = (got - want).abs() / allowance
+        targets, shadow = float(over[:, :-1].max()), float(over[:, -1].max())
+        err = float((got - want).abs().max())
+        assert got.shape == want.shape and got.dtype == torch.float32, name
+        assert targets <= 1.0, f"{name}: K3 disagrees with its plain version ({targets} × the allowance)"
+        assert shadow <= 1.0, f"{name}: K3's shadow row disagrees with its plain version ({shadow} × the allowance)"
+        row = {
+            "phase": f"{name}_{str(rows.dtype)[6:]}", "b": index.shape[0], "nq": index.shape[1],
+            "k": index.shape[2], "ns": ns, "c": c, "dtype": str(rows.dtype)[6:],
+            "shadow_rows": int((index == ns - 1).sum()), "max_abs_err": err,
+            "err_over_allowance": targets, "shadow_err_over_allowance": shadow,
+            "ms": cuda_ms(lambda: k3.segsum(rows, index, ns), reps=20),
+            "plain_ms": cuda_ms(lambda: k3.segsum_plain(rows, index, ns), reps=20),
+        }
+        emit(row)
+        results.append(row)
+
+
+def trunk_gathers(model):
+    """Gathers of the trunk whose features need a gradient, from the plan:
+    every conv block's neighbor gather, the max-pool shortcut of each
+    strided block, each upsample and max-pool block. The first block's
+    input carries the lifted 2D features, so every one of them needs it."""
+    n = 0
+    for plan in (model.encoder.plan, model.decoder.plan):
+        for name, *_ in plan:
+            if "simple" in name or "resnetb" in name:
+                n += 2 if "strided" in name else 1
+            elif "upsample" in name or "pool" in name:
+                n += 1
+    return n
+
+
+def check_train_parity(label, cfg, dev, resumed):
+    """3 train steps on the card (kernels, gather VJP 'banded') against the
+    CPU (plain versions) from the same weights, f32: each step's loss within
+    1e-5 relative, every parameter after each step within rtol 1e-3, atol
+    1e-5·(the largest |param|). With ``resumed`` the card takes the CPU's
+    parameters, batch statistics and momentum before each step, so every
+    step starts from one state; otherwise the two run free.
+
+    The batch has no padded rows: a padded point's pixel-relation feature
+    (~3e12) makes FeatureAggregation's unmasked BN statistics follow
+    rounding (ROADMAP queue 3). At 5 levels the deep levels hold so few
+    points that one leaky-ReLU input changing sign moves a gradient by
+    percents, so free-running states part after the first step by more
+    than rounding (tests/test_torch_train_deeper.py shows it on the CPU):
+    that configuration is held step by step."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
+    from mvkpconv_tpu_torch.train import make_trainer, train_steps
+
+    cfg = cfg.replace(gather_transpose="banded")
+    cpu_tr = make_trainer(cfg, "cpu", seed=1)
+    gpu_tr = make_trainer(cfg, dev, seed=2)
+    gpu_tr.model.load_state_dict(cpu_tr.model.state_dict())
+    tb = make_batch(cfg, 2, np.random.RandomState(1))
+    cpu_b, gpu_b = batch_to_device(tb, "cpu"), batch_to_device(tb, dev)
+    k3.segsum.launches = 0
+    for step in (1, 2, 3):
+        if resumed:
+            gpu_tr.model.load_state_dict(cpu_tr.model.state_dict())
+            gpu_tr.optimizer.load_state_dict(copy.deepcopy(cpu_tr.optimizer.state_dict()))
+        want = float(train_steps(cpu_tr, cpu_b, 1)[0]["loss"])
+        got = float(train_steps(gpu_tr, gpu_b, 1)[0]["loss"])
+        loss_rel = abs(got - want) / abs(want)
+        params = [(name, p.detach(), q.detach().cpu()) for (name, p), q in
+                  zip(cpu_tr.model.named_parameters(), gpu_tr.model.parameters())]
+        atol = TRAIN_PARAM_ATOL_REL * max(float(p.abs().max()) for _, p, _ in params)
+        over = {name: float(((q - p).abs() / (TRAIN_PARAM_RTOL * p.abs() + atol)).max())
+                for name, p, q in params}
+        worst = max(over, key=over.get)
+        emit({"phase": "train_parity", "config": f"{label}, f32, banded",
+              "start": "the CPU's state" if resumed else "free-running", "step": step,
+              "loss_card": got, "loss_cpu": want, "loss_rel_err": loss_rel,
+              "param_err_over_allowance": over[worst], "worst_param": worst,
+              "params_outside": sum(r > 1.0 for r in over.values()), "params": len(over),
+              "k3_launches": k3.segsum.launches})
+        assert np.isfinite(got) and loss_rel <= TRAIN_LOSS_REL, "card/CPU train loss disagree"
+        assert over[worst] <= 1.0, "card/CPU parameters disagree"
+    assert k3.segsum.launches == 3 * trunk_gathers(gpu_tr.model), k3.segsum.launches
+
+
 def main() -> int:
     import torch
 
@@ -162,8 +289,11 @@ def main() -> int:
     from mvkpconv_tpu_torch.ops import _build
     from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
     from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
+    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
+    from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
     from mvkpconv_tpu_torch.ops.sampling import grid_subsample
     from mvkpconv_tpu_torch.ops.unproject import project_to_views, unproject_depth, window_anchors
+    from mvkpconv_tpu_torch.train import make_trainer, train_steps
     from mvkpconv_tpu_torch.training.config import ARCHITECTURE_DEEPER, KPConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,8 +395,69 @@ def main() -> int:
         "logit_abs_max": float(logits.abs().max()), "card": smi,
     })
 
+    # ---- K3 at the level-0 gather-VJP sites of the bench configuration ----
+    pyr = build_pyramid(p0, m0, spec)
+    enc = model.encoder.plan
+    dec = model.decoder.plan
+    n1 = pyr.points[1].shape[1]
+    up_c = [e[1] for e in dec if "upsample" in e[0]][-1]  # the last upsample's width
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    k3_rows = []
+    check_k3("k3_L0_simple", pyr.neighbors[0], cfg.num_points[0] + 1, enc[0][1], gen, k3_rows)
+    check_k3("k3_L0_resnetb", pyr.neighbors[0], cfg.num_points[0] + 1, enc[1][2] // 4, gen, k3_rows)
+    check_k3("k3_L0_strided", pyr.pools[0], cfg.num_points[0] + 1, enc[2][2] // 4, gen, k3_rows)
+    check_k3("k3_L0_strided_maxpool", pyr.pools[0], cfg.num_points[0] + 1, enc[2][1], gen, k3_rows)
+    check_k3("k3_L0_upsample", pyr.upsamples[0], n1 + 1, up_c, gen, k3_rows)
+    del model, pyr
+
+    # ---- train step: card against CPU on the same weights, f32 ----
+    two_level = KPConfig(
+        fusion="early", in_features_dim=66,
+        architecture=("simple", "resnetb", "resnetb_strided", "resnetb", "nearest_upsample", "unary"),
+        num_points=(256, 64), conv_neighbors=(10, 10), pool_neighbors=(10,),
+        first_features_dim=32, num_views=2, image_height=24, image_width=32,
+    )
+    check_train_parity("ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32", small, dev, resumed=True)
+    check_train_parity("6 blocks, 2 levels, N0=256, width 32, 2 views 24x32", two_level, dev, resumed=False)
+
+    # ---- the train step at full width ----
+    trainer = make_trainer(cfg, dev, seed=0)
+    frozen = {k: v.clone() for k, v in trainer.model.net_2d.state_dict().items()}
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not n.startswith("net_2d.")}
+    train_steps(trainer, batch, 1)  # warm-up (cuDNN autotune, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1.radius_topk.launches = 0
+    k2.pixel_topk.launches = 0
+    k3.segsum.launches = 0
+    steps = 5
+    t0 = time.perf_counter()
+    metrics = train_steps(trainer, batch, steps)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    train_launches = {"radius_topk": k1.radius_topk.launches, "pixel_topk": k2.pixel_topk.launches,
+                      "segsum": k3.segsum.launches}
+    losses = [float(m["loss"]) for m in metrics]
+    n_gathers = trunk_gathers(trainer.model)
+    changed = sum(not torch.equal(p.detach(), start[n]) for n, p in trainer.model.named_parameters()
+                  if n in start)
+    assert all(np.isfinite(losses)), losses
+    assert all(torch.equal(v, frozen[k]) for k, v in trainer.model.net_2d.state_dict().items()), "net_2d moved"
+    assert changed == len(start), f"{len(start) - changed} trainable parameters did not move"
+    assert train_launches["segsum"] == n_gathers * steps, (train_launches, n_gathers)
+    assert train_launches["radius_topk"] == 13 * steps and train_launches["pixel_topk"] == steps, train_launches
+    emit({
+        "phase": "train_full", "config": "bench.py:106-117 train step (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16, banded_bf16)",
+        "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
+        "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": train_launches,
+        "trunk_gathers_with_grad": n_gathers, "params_moved": changed,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
+    })
+
     l0 = k1_rows[0]
     bf16 = k2_rows[0]
+    k3_main = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_bfloat16")
     emit({"kernels": [
         {"name": "radius_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/radius_topk.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/radius_topk.py:121",
@@ -278,6 +469,11 @@ def main() -> int:
          "launches": launches["pixel_topk"],
          "max_abs_err": max(r["max_d2_gap"] for r in k2_rows),
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"]},
+        {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
+         "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
+         "launches": train_launches["segsum"],
+         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""KPConv network blocks, rigid eval path (``mvkpconv_tpu/models/blocks.py``).
+"""KPConv network blocks, rigid path (``mvkpconv_tpu/models/blocks.py``).
 
 Dense batched layout ``(B, N, C)``, shadow neighbor indices (== N_support ⇒
 zero feature row), masked batch norm and the KPConv math of the JAX
@@ -11,6 +11,9 @@ Numerics follow the JAX package op by op:
     accumulated in f32, the output f32;
   * float32: ``UnaryBlock``'s Dense, ``MaskedBatchNorm`` and all geometry
     (rigid influence and its distances).
+Blocks read ``self.training``: batch norm takes the masked batch statistics
+in training mode. Every feature gather goes through ``group_points``, whose
+backward is the gather-transpose mode in scope at the forward.
 Deformable and modulated blocks are not ported yet (ROADMAP queue 1, P7).
 """
 
@@ -132,15 +135,23 @@ def kpconv_apply(
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over valid points only; eval uses the running statistics:
-    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32. With
-    ``use_bn=False`` it is a bias only. Training statistics (masked, with
-    the reference's momentum 0.02) are not ported yet."""
+    """BatchNorm over valid points only: ``(x - mean) * rsqrt(var + eps) *
+    scale + bias`` in f32. With ``use_bn=False`` it is a bias only.
 
-    def __init__(self, num_features: int, use_bn: bool = True, epsilon: float = 1e-5):
+    Eval uses the running statistics. Train takes the masked mean and the
+    masked biased variance over every axis but the channel, with
+    ``count = max(Σ mask, 1)`` (the plain mean and biased variance when
+    ``mask`` is None), lets gradients flow through them, and updates the
+    running statistics as ``ra ← (1 − m)·ra + m·batch`` with the
+    reference's torch-style momentum m = ``cfg.batch_norm_momentum``
+    (0.02)."""
+
+    def __init__(self, num_features: int, use_bn: bool = True, epsilon: float = 1e-5,
+                 momentum: float = 0.02):
         super().__init__()
         self.use_bn = use_bn
         self.epsilon = epsilon
+        self.momentum = momentum
         self.bias = nn.Parameter(torch.zeros(num_features))
         if use_bn:
             self.weight = nn.Parameter(torch.ones(num_features))
@@ -151,23 +162,32 @@ class MaskedBatchNorm(nn.Module):
         if not self.use_bn:
             return x + self.bias
         if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm training statistics are not ported yet "
-                "(ROADMAP queue 1, P6); call .eval()"
-            )
-        return (x - self.running_mean) * torch.rsqrt(
-            self.running_var + self.epsilon
-        ) * self.weight + self.bias
+            dims = tuple(range(x.dim() - 1))
+            if mask is None:
+                mean = x.mean(dims)
+                var = ((x - mean) ** 2).mean(dims)
+            else:
+                m = mask.to(x.dtype)[..., None]
+                count = m.sum().clamp(min=1.0)
+                mean = (x * m).sum(dims) / count
+                var = (((x - mean) * m) ** 2).sum(dims) / count
+            with torch.no_grad():
+                mo = self.momentum
+                self.running_mean.mul_(1.0 - mo).add_(mo * mean)
+                self.running_var.mul_(1.0 - mo).add_(mo * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        return (x - mean) * torch.rsqrt(var + self.epsilon) * self.weight + self.bias
 
 
 class UnaryBlock(nn.Module):
     """1×1 MLP (f32) + masked BN + LeakyReLU(0.1)."""
 
     def __init__(self, in_dim: int, out_dim: int, use_bn: bool = True,
-                 no_relu: bool = False):
+                 no_relu: bool = False, bn_momentum: float = 0.02):
         super().__init__()
         self.mlp = nn.Linear(in_dim, out_dim, bias=False)
-        self.bn = MaskedBatchNorm(out_dim, use_bn)
+        self.bn = MaskedBatchNorm(out_dim, use_bn, momentum=bn_momentum)
         self.no_relu = no_relu
 
     def forward(self, x, mask=None):
@@ -232,7 +252,8 @@ class SimpleBlock(nn.Module):
         super().__init__()
         self.block_name, self.layer_ind = block_name, layer_ind
         self.KPConv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius)
-        self.bn = MaskedBatchNorm(out_dim // 2, cfg.use_batch_norm)
+        self.bn = MaskedBatchNorm(out_dim // 2, cfg.use_batch_norm,
+                                  momentum=cfg.batch_norm_momentum)
 
     def forward(self, x, pyr, infl=None):
         q, inds, out_mask, key = _conv_site(self.block_name, self.layer_ind, pyr)
@@ -248,13 +269,14 @@ class ResnetBottleneckBlock(nn.Module):
         super().__init__()
         self.block_name, self.layer_ind = block_name, layer_ind
         mid = out_dim // 4
-        bn = cfg.use_batch_norm
-        self.unary1 = UnaryBlock(in_dim, mid, bn) if in_dim != mid else None
+        bn, mo = cfg.use_batch_norm, cfg.batch_norm_momentum
+        self.unary1 = UnaryBlock(in_dim, mid, bn, bn_momentum=mo) if in_dim != mid else None
         self.KPConv = _kpconv_layer(cfg, mid, mid, radius)
-        self.bn_conv = MaskedBatchNorm(mid, bn)
-        self.unary2 = UnaryBlock(mid, out_dim, bn, no_relu=True)
+        self.bn_conv = MaskedBatchNorm(mid, bn, momentum=mo)
+        self.unary2 = UnaryBlock(mid, out_dim, bn, no_relu=True, bn_momentum=mo)
         self.unary_shortcut = (
-            UnaryBlock(in_dim, out_dim, bn, no_relu=True) if in_dim != out_dim else None
+            UnaryBlock(in_dim, out_dim, bn, no_relu=True, bn_momentum=mo)
+            if in_dim != out_dim else None
         )
 
     def forward(self, x, pyr, infl=None):
@@ -297,7 +319,7 @@ def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
     if "deform" in block_name:
         raise NotImplementedError(_DEFORM_TODO)
     if block_name == "unary":
-        return UnaryBlock(in_dim, out_dim, cfg.use_batch_norm)
+        return UnaryBlock(in_dim, out_dim, cfg.use_batch_norm, bn_momentum=cfg.batch_norm_momentum)
     if block_name in ("simple", "simple_strided"):
         return SimpleBlock(block_name, in_dim, out_dim, radius, layer_ind, cfg)
     if block_name in ("resnetb", "resnetb_strided"):

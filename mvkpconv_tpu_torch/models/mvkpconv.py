@@ -1,11 +1,14 @@
 """MV-KPConv early fusion (``mvkpconv_tpu/models/mvkpconv.py``).
 
 Lifted 64-d 2D features are concatenated into the level-0 input features
-before the KPFCNN encoder. The 2D network runs in the forward (frozen by
-default). The lift — depth unprojection, the projective pixel k-NN (kernel
-K2), one gather of pixel xyz ⊕ features and FeatureAggregation — runs on
-the batch's device; batches may instead carry precomputed ``knn_indices``
-/ ``image_xyz`` (or the whole lifted ``feature_2d3d``).
+before the KPFCNN encoder. The 2D network runs in the forward; with
+``freeze_2d`` (the default) it stays in eval mode when the model trains and
+runs under ``no_grad``, as the JAX model runs it with ``train=False`` and
+stops its gradient. The lift — depth unprojection, the projective pixel
+k-NN (kernel K2), one gather of pixel xyz ⊕ features and
+FeatureAggregation — runs on the batch's device; batches may instead carry
+precomputed ``knn_indices`` / ``image_xyz`` (or the whole lifted
+``feature_2d3d``).
 
 Middle and late fusion are not ported yet (ROADMAP queue 1, P7 item 1).
 """
@@ -62,6 +65,12 @@ class MVKPConv(nn.Module):
         self.decoder = KPFCNNDecoder(cfg, dec)
         self.head = KPFCNNHead(cfg, dec[-1][2])
 
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_2d:
+            self.net_2d.eval()
+        return self
+
     def lift_2d_features(self, batch: Dict[str, torch.Tensor], points: torch.Tensor):
         """UNet over all views → gather K pixels per point → aggregate to 64-d."""
         cfg = self.cfg
@@ -85,10 +94,9 @@ class MVKPConv(nn.Module):
                 "brute-force pixel association (pixel_assoc='exact') is not "
                 "ported yet (ROADMAP queue 1, P7 item 7)"
             )
-        preds = self.net_2d(images.reshape(b * v, h, w, 3))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_2d):
+            preds = self.net_2d(images.reshape(b * v, h, w, 3))
         feat = preds["feature"].reshape(b, v * h * w, -1).to(cfg.compute_dtype)
-        if self.freeze_2d:
-            feat = feat.detach()
         xyz_src = image_xyz.reshape(b, v * h * w, 3).float()
         pixel_xyz, pixel_feat = group_points_joint(xyz_src, feat, knn_idx)
         return self.feat_aggreg(pixel_xyz, points, pixel_feat)

@@ -1,12 +1,19 @@
-"""Batch normalization with flax ``nn.BatchNorm`` inference numerics.
+"""Batch normalization with flax ``nn.BatchNorm`` numerics.
 
-At eval flax computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
+Eval: flax computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
 float32 (the statistics are f32, so a bf16 input promotes) and casts the
-result to the layer's ``dtype`` — or leaves it f32 when ``dtype`` is None.
-This module does the same. Its state is named like ``nn.BatchNorm2d``'s
-(``weight``, ``bias``, ``running_mean``, ``running_var``) without the
-``num_batches_tracked`` counter, which flax does not have. Training-mode
-statistics are not ported yet.
+result to the layer's ``dtype``, or leaves it f32 when ``dtype`` is None.
+
+Train: the statistics are taken over every axis but the channel, with no
+mask, reduced in f32, the variance in flax's fast biased form
+``max(mean(x²) − mean(x)², 0)``; gradients flow through them. The running
+statistics update as ``ra ← m·ra + (1 − m)·batch`` with flax's momentum
+m = 0.9 (torch's 0.1), the variance biased. ``nn.BatchNorm2d`` keeps the
+unbiased variance in its running statistics, so it is not used.
+
+State is named like ``nn.BatchNorm2d``'s (``weight``, ``bias``,
+``running_mean``, ``running_var``) without the ``num_batches_tracked``
+counter, which flax does not have.
 """
 
 from __future__ import annotations
@@ -15,6 +22,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
 
 
 class BatchNorm(nn.Module):
@@ -35,14 +44,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm training statistics are not ported yet "
-                "(ROADMAP queue 1, P6); call .eval()"
-            )
+        axis = self.channel_axis % x.dim()
         shape = [1] * x.dim()
-        shape[self.channel_axis] = x.shape[self.channel_axis]
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        shape[axis] = x.shape[axis]
+        xf = x.float()
+        if self.training:
+            dims = tuple(d for d in range(x.dim()) if d != axis)
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * mean)
+                self.running_var.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         y = y + self.bias.view(shape)
         return y if self.out_dtype is None else y.to(self.out_dtype)

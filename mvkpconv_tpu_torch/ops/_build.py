@@ -35,6 +35,8 @@ SIGNATURES = {
     # points, image_xyz, image_is_bf16, iu0, iv0, out,
     # B, N, V, H, W, window, k, stream
     "mvkp_pixel_topk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    # rows, rows_is_bf16, index, out, B, rows_per_b, Ns, C, stream
+    "mvkp_segsum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _LIB = None

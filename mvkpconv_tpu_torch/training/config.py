@@ -10,9 +10,11 @@ writes ``jnp.dtype(...).name``.
 
 Several fields name TPU strategies for one function (neighbor selection
 method, pixel selection method, KPConv contraction form, the fused KPConv
-kernel, influence cache policy, gather VJP). They are accepted so that configurations load
-unchanged; :meth:`KPConfig.port_option` maps each to the port's single path
-and warns once per (field, value).
+kernel, influence cache policy, gather VJP). They are accepted so that
+configurations load unchanged; :meth:`KPConfig.port_option` maps each to
+the port's path for it and warns once per (field, value) where that path
+is another strategy. The gather VJP keeps three native modes (``scatter``,
+``banded``, ``banded_bf16``; see ``ops/gather.py``).
 """
 
 from __future__ import annotations
@@ -67,9 +69,11 @@ _PORT_PATHS = {
     # the fused KPConv kernel (K4) is not ported yet: the einsum contraction
     "use_pallas_kpconv": {False: False, True: False},
     "influence_cache": {"prebuilt": "prebuilt", "none": "none", "lazy": "prebuilt"},
+    # the group_points VJP (ops/gather.py): 'sorted' and 'window' are the
+    # same exact segment sum under other TPU strategies, so kernel K3
     "gather_transpose": {
-        "scatter": "scatter", "sorted": "scatter", "window": "scatter",
-        "banded": "scatter", "banded_bf16": "scatter",
+        "scatter": "scatter", "sorted": "banded", "window": "banded",
+        "banded": "banded", "banded_bf16": "banded_bf16",
     },
 }
 # values that name the port's path without a change of strategy
@@ -79,7 +83,7 @@ _NATIVE = {
     "kpconv_tail": ("auto", "einsum"),
     "use_pallas_kpconv": (False,),
     "influence_cache": ("prebuilt", "none"),
-    "gather_transpose": ("scatter",),
+    "gather_transpose": ("scatter", "banded", "banded_bf16"),
 }
 _WARNED = set()
 

@@ -1,0 +1,78 @@
+"""Train and eval steps (``mvkpconv_tpu/training/steps.py``).
+
+A train step is the JAX package's jitted step run eagerly: the pyramid
+(under ``no_grad``), the forward in training mode, the masked cross-entropy,
+the backward — every trunk gather's VJP in the mode of
+``cfg.gather_transpose`` (kernel K3 for the ``banded`` modes) — then the
+clipped SGD update. Batch-norm statistics update in the forward.
+
+Batch dict (as the JAX step takes it): points (B, N0, 3), mask (B, N0),
+features (B, N0, C), labels (B, N0) in [0, C) or ``ignore_label``, and the
+fusion inputs (images, depth, intrinsics, poses, or their precomputed
+forms). There is no dropout on this path (the frozen UNet's is 0), so a
+step draws no random numbers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+from torch import nn
+
+from mvkpconv_tpu_torch.ops.gather import gather_transpose
+from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
+from mvkpconv_tpu_torch.training.losses import segmentation_cross_entropy
+
+
+def forward_backward(model: nn.Module, cfg, batch: Dict[str, torch.Tensor]):
+    """Loss and logits of one batch in training mode, with the parameters'
+    ``.grad`` filled by the backward (before any clipping). Returns
+    ``(loss, logits)``, both detached."""
+    model.train()
+    with torch.no_grad():
+        pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
+    with gather_transpose(cfg.port_option("gather_transpose")):
+        logits = model(batch, pyr)
+        loss = segmentation_cross_entropy(
+            logits, batch["labels"], batch.get("mask"),
+            class_weights=cfg.class_weights, ignore_label=cfg.ignore_label,
+            label_smoothing=cfg.label_smoothing, balance=cfg.segloss_balance,
+        )
+        loss.backward()
+    return loss.detach(), logits.detach()
+
+
+def accuracy(logits: torch.Tensor, labels: torch.Tensor, mask, ignore_label: int):
+    """Share of valid, non-ignored points whose argmax is their label."""
+    valid = labels != ignore_label
+    if mask is not None:
+        valid = valid & mask
+    hit = (logits.argmax(-1) == labels) & valid
+    return hit.sum() / valid.sum().clamp(min=1)
+
+
+def make_train_step(model: nn.Module, cfg, optimizer: torch.optim.Optimizer) -> Callable:
+    """``step(batch) -> {'loss', 'accuracy'}`` (0-d tensors on the batch's
+    device): forward, backward and one optimizer update."""
+
+    def step(batch):
+        optimizer.zero_grad(set_to_none=True)
+        loss, logits = forward_backward(model, cfg, batch)
+        optimizer.step()
+        acc = accuracy(logits, batch["labels"], batch.get("mask"), cfg.ignore_label)
+        return {"loss": loss, "accuracy": acc}
+
+    return step
+
+
+def make_eval_step(model: nn.Module, cfg) -> Callable:
+    """``step(batch) -> (B, N0, C)`` per-point probabilities, eval mode."""
+
+    @torch.inference_mode()
+    def step(batch):
+        model.eval()
+        pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
+        return torch.softmax(model(batch, pyr), dim=-1)
+
+    return step

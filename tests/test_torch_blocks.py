@@ -213,8 +213,11 @@ def test_unported_variants_raise():
     for fusion in ("middle", "late"):
         with pytest.raises(NotImplementedError, match="P7"):
             MVKPConv(cfg.replace(fusion=fusion))
-    with pytest.raises(NotImplementedError):
-        B.MaskedBatchNorm(4).train()(torch.zeros(2, 4))
+    with pytest.raises(NotImplementedError, match="P7"):
+        MVKPConv(cfg.replace(pixel_assoc="exact")).lift_2d_features(
+            {"images": torch.zeros(1, 1, 8, 8, 3), "image_xyz": torch.zeros(1, 1, 8, 8, 3)},
+            torch.zeros(1, 4, 3),
+        )
 
 
 def test_convert_raises_on_unused_or_unset_leaves():
