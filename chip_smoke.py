@@ -38,9 +38,25 @@ Phases, each printed as one JSON line:
      VJP 'banded_bf16'): a warm-up step, then 5 timed steps; loss finite,
      parameters outside ``net_2d`` changed and ``net_2d`` unchanged bit for
      bit, one K3 launch per trunk gather whose features need a gradient
-     (counted from the plan), ms per step, points/s and peak memory.
+     (counted from the plan), ms per step, points/s and peak memory;
+ 10. k4_*: the fused KPConv kernels (forward, cotangent of the gathered
+     features, weighted sums and the weight gradient built on them) against
+     their plain versions at four conv sites of the bench pyramid (level-0
+     ``simple`` 66→64 and ``resnetb`` 32→32, the first ``resnetb_strided``,
+     the deepest ``resnetb`` 512→512), f32 and bf16 features: each element
+     within 2⁻¹⁸ · Σ|terms| of the plain version, both judged against a
+     float64 evaluation; kernel, plain and einsum-chain times; the same
+     checks without the times at one ``resnetb`` site of every level between;
+ 11. parity_fused: the forward on the card (K4) against the CPU (plain) with
+     ``use_pallas_kpconv=True, influence_cache='none'`` at the configuration
+     of phase 5, for early, middle and late fusion; train_parity_fused: the
+     3 train steps of phase 8 with those flags;
+ 12. full_fused, train_full_fused: phases 6 and 9 on the fused path, with the
+     K4 launch counts and the gather VJPs' row widths (3 + Cin at the conv
+     gathers) from the plan, beside the default path's figures.
 
-Then one JSON line with every kernel's figures, the card's
+Then one JSON line with every kernel's figures (its time beside the least
+time the card could take for the same bytes and operations), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
@@ -49,6 +65,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -56,6 +73,10 @@ ROOT = Path(__file__).resolve().parent
 TIE_REL = 2.0**-20  # a few float32 ulps
 PARITY_REL = 1e-4
 SEGSUM_REL = 2.0**-18  # of Σ|rows| into each target
+KPCONV_REL = 2.0**-18  # of Σ|terms| of each output element
+KPCONV_INFLUENCE_ABS = 2.0**-20  # of an influence weight (they lie in [0, 1])
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
 TRAIN_LOSS_REL = 1e-5
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL_REL = 1e-3, 1e-5
 
@@ -79,6 +100,18 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, flops):
+    """The least ms the card could take: each input read once and each
+    output written once at the memory rate, or the operations at the f32
+    peak, whichever is larger; and which of the two."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def d2_gaps(d2_got, d2_want, r2=None):
     """(relative, absolute) largest gap between two selections' ascending d²
     lists; where one list has an entry and the other none (inf), the entry
@@ -99,6 +132,16 @@ def d2_gaps(d2_got, d2_want, r2=None):
     diff = torch.where(both, (d2_got - d2_want).abs(), torch.zeros_like(d2_got))
     rel = diff / torch.maximum(d2_got.abs(), d2_want.abs()).clamp(min=1e-30)
     return float(rel.max()), float(diff.max())
+
+
+def pairs_within(query, support, r2):
+    """How many (query, support) pairs of the same batch element lie within
+    the squared radius, counted in slabs of queries."""
+    total = 0
+    for q0 in range(0, query.shape[1], 2048):
+        diff = query[:, q0:q0 + 2048, None, :] - support[:, None, :, :]
+        total += int(((diff * diff).sum(-1) <= r2).sum())
+    return total
 
 
 def check_k1(name, query, support, radius, k, results):
@@ -125,10 +168,17 @@ def check_k1(name, query, support, radius, k, results):
     assert gap <= TIE_REL, f"{name}: K1 disagrees with its plain version (d² gap {gap})"
     ms = cuda_ms(lambda: k1.radius_topk(query, support, radius, k), reps=20)
     plain_ms = cuda_ms(lambda: k1.radius_topk_plain(query, support, radius, k), reps=3, warmup=1)
+    in_radius = pairs_within(query, support, k1.squared_radius(radius))
     row = {
         "phase": name, "nq": query.shape[1], "ns": ns, "b": query.shape[0], "k": k,
         "radius": radius, "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs,
-        "ms": ms, "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms, "pairs_in_radius": in_radius,
+        "pairs_scanned_by_kernel": query.shape[0] * query.shape[1] * ns,
+        # the function needs a d² (8 operations) and a comparison only for
+        # the pairs within the radius in this run's data: an exact search may
+        # skip every other support by its cell. The present kernel scans every
+        # pair of a batch element, which is its cost and not the function's.
+        **bound(nbytes(query, support, got), 9.0 * in_radius),
     }
     emit(row)
     results.append(row)
@@ -162,6 +212,9 @@ def check_k2(name, points, image_xyz, iu0, iv0, window, k, results):
         "dtype": str(image_xyz.dtype).replace("torch.", ""),
         "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs,
         "ms": ms, "plain_ms": plain_ms,
+        # a d² and a comparison for every pixel of every view's window
+        **bound(nbytes(points, image_xyz, iu0, iv0, got),
+                9.0 * b * points.shape[1] * image_xyz.shape[1] * window * window),
     }
     emit(row)
     results.append(row)
@@ -199,19 +252,169 @@ def check_k3(name, index, ns, c, gen, results):
             "err_over_allowance": targets, "shadow_err_over_allowance": shadow,
             "ms": cuda_ms(lambda: k3.segsum(rows, index, ns), reps=20),
             "plain_ms": cuda_ms(lambda: k3.segsum_plain(rows, index, ns), reps=20),
+            # one add per row element; the plain version is the one PyTorch
+            # call for this function (index_add_)
+            **bound(nbytes(rows, index, got), float(rows.numel())),
         }
+        row["library_ms"] = row["plain_ms"]
         emit(row)
         results.append(row)
+
+
+def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, results, timed=True):
+    """The three K4 kernels against their plain versions at one conv site of
+    the pyramid, f32 and bf16 features; with ``timed`` also their times.
+
+    Kernel and plain version add the same f32 terms in different orders (the
+    plain version through PyTorch's batched and plain matrix products), and
+    their influences may differ in the last bit, so each output element is
+    held to 2⁻¹⁸ · Σ|terms| (the plain version on |features|, |weights|,
+    |cotangent|): 64 units of f32 rounding, far below a bf16 (2⁻⁹) or TF32
+    (2⁻¹¹) product. An influence is 1 − d/extent, so it carries an absolute
+    error of a few 2⁻²⁴ whatever its size, and one version may give 0 where
+    the other gives 1e-7: the allowance adds 2⁻²⁰ · Σ|terms with every
+    influence set to 1|. Both are also judged against the plain version in
+    float64.
+    The weight gradient sums over all B·N queries in one matrix product on
+    the kernel's ``wf``; it is held the same way. A shadow neighbor of a
+    valid query gets a cotangent of exactly 0 (a padded query sits on its
+    shadow neighbors, which is the influence-1 case)."""
+    import torch
+    from mvkpconv_tpu_torch.models import blocks
+    from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
+    from mvkpconv_tpu_torch.ops.gather import group_points, pad_shadow_row
+    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
+
+    dev = q_pts.device
+    m = cfg.num_kernel_points
+    extent = radius * cfg.kp_extent / cfg.conv_radius
+    kp = torch.from_numpy(kernel_point_positions(radius, m)).to(dev)
+    s_pad = torch.cat([s_pts, torch.full_like(s_pts[:, :1], 1e6)], dim=1)
+    rel = (group_points(s_pad, inds) - q_pts[:, :, None, :]).contiguous()
+    x = torch.randn(*s_pts.shape[:2], cin, generator=gen, device=dev)
+    nx32 = group_points(pad_shadow_row(x), inds)
+    w2d = torch.randn(m * cin, cout, generator=gen, device=dev) / (m * cin) ** 0.5
+    g = torch.randn(*q_pts.shape[:2], cout, generator=gen, device=dev)
+    b, n, k = inds.shape
+    q = b * n
+    infl = k4._influence(rel, kp, extent)
+    nnz = float((infl > 0).sum())
+    infl_ops = 12.0 * q * k * m  # 3 differences, their squares' sum, sqrt, divide, 1 − ·, max
+    rel64, kp64, w64, g64 = rel.double(), kp.double(), w2d.double(), g.double()
+
+    def over(got, want, allowance):
+        return float(((got - want).abs() / (allowance + 1e-30)).max())
+
+    shadow = (inds == s_pts.shape[1]) & q_mask[:, :, None]
+
+    for nx in (nx32, nx32.to(torch.bfloat16)):
+        dt = str(nx.dtype)[6:]
+        a_nx, a_w, a_g = nx.float().abs(), w2d.abs(), g.abs()
+        ones_wf = KPCONV_INFLUENCE_ABS * a_nx.sum(2).repeat(1, 1, m)  # (B, N, M·Cin)
+        checks = {}
+        # forward
+        got = k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent)
+        want = k4.kpconv_fused_plain(rel, nx, kp, w2d, extent)
+        ref = k4.kpconv_fused_plain(rel64, nx.double(), kp64, w64, extent)
+        allow = KPCONV_REL * k4.kpconv_fused_plain(rel, a_nx, kp, a_w, extent) + torch.matmul(ones_wf, a_w)
+        assert got.shape == (b, n, cout) and got.dtype == torch.float32, name
+        checks["fwd"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
+                         float((got - want).abs().max()))
+        # the cotangent of the gathered features
+        got = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent)
+        want = k4.kpconv_fused_bwd_x_plain(rel, g, kp, w2d, extent)
+        ref = k4.kpconv_fused_bwd_x_plain(rel64, g64, kp64, w64, extent)
+        allow = KPCONV_REL * k4.kpconv_fused_bwd_x_plain(rel, a_g, kp, a_w, extent) + (
+            KPCONV_INFLUENCE_ABS * torch.matmul(a_g, a_w.t()).reshape(b, n, m, cin).sum(2)[:, :, None, :])
+        assert got.shape == (b, n, k, cin) and got.dtype == torch.float32, name
+        assert bool((got[shadow] == 0).all()), f"{name}: shadow neighbors got a cotangent"
+        checks["bwd_x"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
+                           float((got - want).abs().max()))
+        # the weighted sums, and the weight gradient built on them
+        got = k4.kpconv_wf(rel, nx, kp, extent)
+        want = k4.kpconv_wf_plain(rel, nx, kp, extent)
+        ref = k4.kpconv_wf_plain(rel64, nx.double(), kp64, extent)
+        a_wf = k4.kpconv_wf_plain(rel, a_nx, kp, extent)
+        allow = KPCONV_REL * a_wf + ones_wf
+        assert got.shape == (b, n, m * cin) and got.dtype == torch.float32, name
+        checks["wf"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
+                        float((got - want).abs().max()))
+        allow = torch.matmul((KPCONV_REL * a_wf + ones_wf).reshape(q, -1).t(), a_g.reshape(q, -1))
+        dw_want = torch.matmul(want.reshape(q, -1).t(), g.reshape(q, -1))
+        dw_ref = torch.matmul(ref.reshape(q, -1).t(), g64.reshape(q, -1))
+        del got, want, ref, a_wf
+        dw = k4.weight_gradient(rel, nx, kp, g, extent)
+        checks["dw"] = (over(dw, dw_want, allow), over(dw, dw_ref, allow), over(dw_want, dw_ref, allow),
+                        float((dw - dw_want).abs().max()))
+        for what, (vs_plain, vs_f64, plain_vs_f64, _) in checks.items():
+            assert vs_plain <= 1.0, f"{name} {dt}: K4 {what} disagrees with its plain version ({vs_plain} × the allowance)"
+            assert vs_f64 <= 1.0, f"{name} {dt}: K4 {what} is {vs_f64} × the allowance from float64"
+        row = {
+            "phase": f"{name}_{dt}", "b": b, "n": n, "k": k, "m": m, "cin": cin, "cout": cout,
+            "dtype": dt, "influence_nonzero_share": nnz / (q * k * m),
+            "shadow_neighbors": int(shadow.sum()), "padded_queries": int((~q_mask).sum()),
+            **{f"{what}_err_over_allowance": v[0] for what, v in checks.items()},
+            **{f"{what}_err_vs_f64_over_allowance": v[1] for what, v in checks.items()},
+            **{f"{what}_plain_vs_f64_over_allowance": v[2] for what, v in checks.items()},
+            **{f"{what}_max_abs_err": v[3] for what, v in checks.items()},
+        }
+        results.append(row)
+        if not timed:
+            emit(row)
+            continue
+
+        # times: kernels, plain versions, and the einsum chain on a prebuilt influence
+        infl_c = infl.to(nx.dtype)
+        w3 = w2d.reshape(m, cin, cout)
+        nx_leaf = nx.clone().requires_grad_(True)
+        w_leaf = w2d.clone().requires_grad_(True)
+        w3_leaf = w3.clone().requires_grad_(True)
+
+        def k4_fwd_bwd():
+            out = k4.kpconv_fused(rel, nx_leaf, kp, w_leaf, extent)
+            torch.autograd.grad(out, (nx_leaf, w_leaf), g)
+
+        def chain_fwd_bwd():
+            out = blocks._contract(infl_c, nx_leaf, w3_leaf, nx.dtype)
+            torch.autograd.grad(out, (nx_leaf, w3_leaf), g)
+
+        reps = 10
+        fwd_in = nbytes(rel, nx, kp, w2d)
+        row.update({
+            "fwd": {
+                "ms": cuda_ms(lambda: k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent), reps),
+                "plain_ms": cuda_ms(lambda: k4.kpconv_fused_plain(rel, nx, kp, w2d, extent), reps),
+                "einsum_chain_ms": cuda_ms(lambda: blocks._contract(infl_c, nx, w3, nx.dtype), reps),
+                **bound(fwd_in + 4 * q * cout, infl_ops + 2 * nnz * cin + 2.0 * q * m * cin * cout),
+            },
+            "bwd_x": {
+                "ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent), reps),
+                "plain_ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x_plain(rel, g, kp, w2d, extent), reps),
+                **bound(nbytes(rel, g, kp, w2d) + 4 * q * k * cin,
+                        infl_ops + 2 * nnz * cin + 2.0 * q * m * cin * cout),
+            },
+            "wf": {
+                "ms": cuda_ms(lambda: k4.kpconv_wf(rel, nx, kp, extent), reps),
+                "plain_ms": cuda_ms(lambda: k4.kpconv_wf_plain(rel, nx, kp, extent), reps),
+                **bound(nbytes(rel, nx, kp) + 4 * q * m * cin, infl_ops + 2 * nnz * cin),
+            },
+            "dw_ms": cuda_ms(lambda: k4.weight_gradient(rel, nx, kp, g, extent), reps),
+            "fwd_bwd_ms": cuda_ms(k4_fwd_bwd, reps),
+            "einsum_chain_fwd_bwd_ms": cuda_ms(chain_fwd_bwd, reps),
+        })
+        emit(row)
 
 
 def trunk_gathers(model):
     """Gathers of the trunk whose features need a gradient, from the plan:
     every conv block's neighbor gather, the max-pool shortcut of each
-    strided block, each upsample and max-pool block. The first block's
-    input carries the lifted 2D features, so every one of them needs it."""
-    n = 0
-    for plan in (model.encoder.plan, model.decoder.plan):
-        for name, *_ in plan:
+    strided block, each upsample and max-pool block. Early fusion's first
+    block takes the lifted 2D features, so every one of them needs it; an
+    encoder fed the batch's own features (see ``conv_blocks``) does not
+    differentiate its first gather."""
+    n = conv_blocks(model)[1] - conv_blocks(model)[0]
+    for part in (*model.encoders, model.decoder):
+        for name, *_ in part.plan:
             if "simple" in name or "resnetb" in name:
                 n += 2 if "strided" in name else 1
             elif "upsample" in name or "pool" in name:
@@ -219,7 +422,39 @@ def trunk_gathers(model):
     return n
 
 
-def check_train_parity(label, cfg, dev, resumed):
+def gather_vjp_widths(model, fused):
+    """Row widths of the trunk's gather VJPs, one per K3 launch, from the
+    plan: a conv block gathers its KPConv's input features (a resnetb block
+    its bottleneck, a quarter of the block's width), on the fused path
+    jointly with the 3 position columns; a strided block's shortcut and an
+    upsample or pool block gather their input as it is."""
+    widths = []
+    for part in (*model.encoders, model.decoder):
+        for name, in_dim, out_dim, *_ in part.plan:
+            if "simple" in name or "resnetb" in name:
+                widths.append((in_dim if "simple" in name else out_dim // 4) + (3 if fused else 0))
+                if "strided" in name:
+                    widths.append(in_dim)
+            elif "upsample" in name or "pool" in name:
+                widths.append(in_dim)
+    return sorted(widths)
+
+
+def conv_blocks(model):
+    """(KPConv blocks of the trunk, those whose input features need a
+    gradient) from the plan. The fused path launches one K4 forward and one
+    ``wf`` per block, and one ``bwd_x`` per block whose input needs a
+    gradient: every block but the first of an encoder that is fed the batch's
+    own features (middle fusion's 3D stream, late fusion's only one; early
+    fusion's first block takes the lifted features, which do)."""
+    is_conv = lambda name: "simple" in name or "resnetb" in name  # noqa: E731
+    total = sum(is_conv(e[0]) for part in (*model.encoders, model.decoder) for e in part.plan)
+    fed_raw = {"early": 0, "middle": 1, "late": 1}[model.cfg.fusion]
+    first_is_conv = is_conv(model.encoders[0].plan[0][0])
+    return total, total - (fed_raw if first_is_conv else 0)
+
+
+def check_train_parity(phase, label, cfg, dev, resumed):
     """3 train steps on the card (kernels, gather VJP 'banded') against the
     CPU (plain versions) from the same weights, f32: each step's loss within
     1e-5 relative, every parameter after each step within rtol 1e-3, atol
@@ -238,7 +473,6 @@ def check_train_parity(label, cfg, dev, resumed):
     import torch
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
     from mvkpconv_tpu_torch.infer import batch_to_device
-    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
     from mvkpconv_tpu_torch.train import make_trainer, train_steps
 
     cfg = cfg.replace(gather_transpose="banded")
@@ -247,7 +481,7 @@ def check_train_parity(label, cfg, dev, resumed):
     gpu_tr.model.load_state_dict(cpu_tr.model.state_dict())
     tb = make_batch(cfg, 2, np.random.RandomState(1))
     cpu_b, gpu_b = batch_to_device(tb, "cpu"), batch_to_device(tb, dev)
-    k3.segsum.launches = 0
+    reset_launches()
     for step in (1, 2, 3):
         if resumed:
             gpu_tr.model.load_state_dict(cpu_tr.model.state_dict())
@@ -261,15 +495,172 @@ def check_train_parity(label, cfg, dev, resumed):
         over = {name: float(((q - p).abs() / (TRAIN_PARAM_RTOL * p.abs() + atol)).max())
                 for name, p, q in params}
         worst = max(over, key=over.get)
-        emit({"phase": "train_parity", "config": f"{label}, f32, banded",
+        emit({"phase": phase, "config": f"{label}, f32, banded",
               "start": "the CPU's state" if resumed else "free-running", "step": step,
               "loss_card": got, "loss_cpu": want, "loss_rel_err": loss_rel,
               "param_err_over_allowance": over[worst], "worst_param": worst,
               "params_outside": sum(r > 1.0 for r in over.values()), "params": len(over),
-              "k3_launches": k3.segsum.launches})
+              "launches": read_launches()})
         assert np.isfinite(got) and loss_rel <= TRAIN_LOSS_REL, "card/CPU train loss disagree"
         assert over[worst] <= 1.0, "card/CPU parameters disagree"
-    assert k3.segsum.launches == 3 * trunk_gathers(gpu_tr.model), k3.segsum.launches
+    launches = read_launches()
+    n_conv, n_bwd_x = conv_blocks(gpu_tr.model)
+    assert launches["segsum"] == 3 * trunk_gathers(gpu_tr.model), launches
+    assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (3 * n_conv if runs_k4(cfg) else 0), launches
+    assert launches["kpconv_fused_bwd_x"] == (3 * n_bwd_x if runs_k4(cfg) else 0), launches
+
+
+def check_forward_parity(phase, label, cfg, dev):
+    """The forward on the card (kernels) against the CPU (plain versions)
+    from the same weights, f32, TF32 off, on a batch with padded rows:
+    max |Δ logit| ≤ 1e-4 · max |logit| on valid points."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device, infer, make_model
+    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
+
+    cpu_model = make_model(cfg, "cpu", seed=1)
+    gpu_model = make_model(cfg, dev, seed=2)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    sb = make_batch(cfg, 2, np.random.RandomState(1))
+    sb["mask"][-1, -24:] = False
+    sb["points"] = np.where(sb["mask"][..., None], sb["points"], np.float32(1e6))
+    want = infer(cpu_model, batch_to_device(sb, "cpu"))
+    k4.kpconv_fused_fwd.launches = 0
+    got = infer(gpu_model, batch_to_device(sb, dev)).cpu()
+    mask = torch.from_numpy(sb["mask"])
+    err = float((got - want).abs()[mask].max())
+    scale = float(want.abs()[mask].max())
+    emit({"phase": phase, "config": label, "max_abs_err": err, "max_abs_logit": scale,
+          "limit": PARITY_REL * scale, "k4_fwd_launches": k4.kpconv_fused_fwd.launches})
+    assert bool(torch.isfinite(got).all()) and err <= PARITY_REL * scale, "card/CPU logits disagree"
+    assert k4.kpconv_fused_fwd.launches == (conv_blocks(gpu_model)[0] if runs_k4(cfg) else 0)
+
+
+def runs_k4(cfg):
+    """Whether the configuration's conv blocks reach the fused kernel: the
+    flag, and no influence cache (a cache that exists wins)."""
+    return bool(cfg.use_pallas_kpconv) and cfg.influence_cache == "none"
+
+
+def kernel_counters():
+    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
+    from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
+    from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
+    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
+
+    return {"radius_topk": k1.radius_topk, "pixel_topk": k2.pixel_topk, "segsum": k3.segsum,
+            "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
+            "kpconv_wf": k4.kpconv_wf}
+
+
+def reset_launches():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
+    """The inference slice at full width: a warm-up, then ``forwards`` timed
+    forwards with every kernel's launches counted and held to the plan."""
+    import torch
+    from mvkpconv_tpu_torch.infer import infer, make_model
+
+    model = make_model(cfg, dev, seed=0)
+    logits = infer(model, batch)  # warm-up (cuDNN autotune, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(forwards):
+        logits = infer(model, batch)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / forwards
+    launches = read_launches()
+    n_conv, _ = conv_blocks(model)
+    assert tuple(logits.shape) == (cfg.batch_num, cfg.num_points[0], cfg.num_classes), logits.shape
+    assert bool(torch.isfinite(logits).all()), "non-finite logits"
+    assert launches["radius_topk"] == 13 * forwards, launches
+    assert launches["pixel_topk"] == forwards, launches
+    assert launches["kpconv_fused_fwd"] == (n_conv * forwards if runs_k4(cfg) else 0), (launches, n_conv)
+    assert launches["segsum"] == launches["kpconv_fused_bwd_x"] == launches["kpconv_wf"] == 0, launches
+    row = {
+        "phase": phase,
+        "config": "bench.py:106-117 (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16)"
+                  + (", use_pallas_kpconv=True, influence_cache='none'" if runs_k4(cfg) else ""),
+        "forwards": forwards, "ms_per_forward": dt * 1e3,
+        "points_per_s": cfg.batch_num * cfg.num_points[0] / dt, "launches": launches,
+        "conv_blocks": n_conv,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+        "logit_abs_max": float(logits.abs().max()), "card": smi,
+    }
+    if beside is not None:
+        row["default_path"] = {k: beside[k] for k in ("ms_per_forward", "points_per_s", "peak_mem_gib")}
+    emit(row)
+    return row, launches
+
+
+def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
+    """The train step at full width: a warm-up step, then ``steps`` timed
+    steps; loss finite, every trainable tensor moved, ``net_2d`` unchanged bit
+    for bit, every kernel's launches held to the plan."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.ops import gather
+    from mvkpconv_tpu_torch.train import make_trainer, train_steps
+
+    trainer = make_trainer(cfg, dev, seed=0)
+    frozen = {k: v.clone() for k, v in trainer.model.net_2d.state_dict().items()}
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not n.startswith("net_2d.")}
+    train_steps(trainer, batch, 1)  # warm-up (cuDNN autotune, allocator)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = train_steps(trainer, batch, steps)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = read_launches()
+    # one more step, untimed, with the gather VJP's row widths written down
+    segsum, seen = gather.segsum, []
+    gather.segsum = lambda rows, index, ns: seen.append(rows.shape[1]) or segsum(rows, index, ns)
+    try:
+        train_steps(trainer, batch, 1)
+    finally:
+        gather.segsum = segsum
+    losses = [float(m["loss"]) for m in metrics]
+    n_gathers = trunk_gathers(trainer.model)
+    n_conv, n_bwd_x = conv_blocks(trainer.model)
+    fused = runs_k4(cfg)
+    changed = sum(not torch.equal(p.detach(), start[n]) for n, p in trainer.model.named_parameters()
+                  if n in start)
+    assert all(np.isfinite(losses)), losses
+    assert all(torch.equal(v, frozen[k]) for k, v in trainer.model.net_2d.state_dict().items()), "net_2d moved"
+    assert changed == len(start), f"{len(start) - changed} trainable parameters did not move"
+    assert launches["segsum"] == n_gathers * steps, (launches, n_gathers)
+    assert sorted(seen) == gather_vjp_widths(trainer.model, fused), (sorted(seen), fused)
+    assert launches["radius_topk"] == 13 * steps and launches["pixel_topk"] == steps, launches
+    assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
+    assert launches["kpconv_fused_bwd_x"] == (n_bwd_x * steps if fused else 0), (launches, n_bwd_x)
+    row = {
+        "phase": phase,
+        "config": "bench.py:106-117 train step (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16, banded_bf16)"
+                  + (", use_pallas_kpconv=True, influence_cache='none'" if fused else ""),
+        "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
+        "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": launches,
+        "trunk_gathers_with_grad": n_gathers, "gather_vjp_row_widths": sorted(seen),
+        "conv_blocks": n_conv, "conv_blocks_with_input_grad": n_bwd_x,
+        "params_moved": changed,
+        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
+    }
+    if beside is not None:
+        row["default_path"] = {k: beside[k] for k in ("ms_per_step", "points_per_s", "peak_mem_gib")}
+    emit(row)
+    return row, launches
 
 
 def main() -> int:
@@ -285,15 +676,12 @@ def main() -> int:
     import numpy as np
 
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
-    from mvkpconv_tpu_torch.infer import batch_to_device, bench_config, infer, make_model
+    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, batch_to_device, bench_config, fused_config
+    from mvkpconv_tpu_torch.models.kpfcnn import plan_architecture
     from mvkpconv_tpu_torch.ops import _build
-    from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
-    from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
-    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
     from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
     from mvkpconv_tpu_torch.ops.sampling import grid_subsample
     from mvkpconv_tpu_torch.ops.unproject import project_to_views, unproject_depth, window_anchors
-    from mvkpconv_tpu_torch.train import make_trainer, train_steps
     from mvkpconv_tpu_torch.training.config import ARCHITECTURE_DEEPER, KPConfig
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -316,8 +704,14 @@ def main() -> int:
     seconds = time.perf_counter() - t0
     _build.library()
     log = lib.with_suffix(".log").read_text().splitlines()
+    # the same sources through one nvcc call, for comparison (output discarded)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", f"{tmp}/single.so",
+                        *map(str, _build.sources())], capture_output=True, check=True)
+        single_seconds = time.perf_counter() - t0
     emit({
-        "phase": "build", "seconds": seconds, "library": lib.name,
+        "phase": "build", "seconds": seconds, "single_nvcc_call_seconds": single_seconds, "library": lib.name,
         "ptxas": [ln.strip() for ln in log if "registers" in ln or "spill" in ln],
     })
 
@@ -354,62 +748,40 @@ def main() -> int:
         pool_neighbors=(16,) * 4, first_features_dim=32, num_views=3,
         image_height=24, image_width=32,
     )
-    cpu_model = make_model(small, "cpu", seed=1)
-    gpu_model = make_model(small, dev, seed=2)
-    gpu_model.load_state_dict(cpu_model.state_dict())
-    sb = make_batch(small, 2, np.random.RandomState(1))
-    sb["mask"][-1, -24:] = False
-    sb["points"] = np.where(sb["mask"][..., None], sb["points"], np.float32(1e6))
-    want = infer(cpu_model, batch_to_device(sb, "cpu"))
-    got = infer(gpu_model, batch_to_device(sb, dev)).cpu()
-    mask = torch.from_numpy(sb["mask"])
-    err = float((got - want).abs()[mask].max())
-    scale = float(want.abs()[mask].max())
-    emit({"phase": "parity", "config": "ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32, f32",
-          "max_abs_err": err, "max_abs_logit": scale, "limit": PARITY_REL * scale})
-    assert bool(torch.isfinite(got).all()) and err <= PARITY_REL * scale, "card/CPU logits disagree"
+    small_label = "ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32"
+    check_forward_parity("parity", f"{small_label}, f32", small, dev)
 
     # ---- the slice at full width ----
-    model = make_model(cfg, dev, seed=0)
-    logits = infer(model, batch)  # warm-up (cuDNN autotune, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    k1.radius_topk.launches = 0
-    k2.pixel_topk.launches = 0
-    forwards = 5
-    t0 = time.perf_counter()
-    for _ in range(forwards):
-        logits = infer(model, batch)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / forwards
-    launches = {"radius_topk": k1.radius_topk.launches, "pixel_topk": k2.pixel_topk.launches}
-    assert tuple(logits.shape) == (cfg.batch_num, cfg.num_points[0], cfg.num_classes), logits.shape
-    assert bool(torch.isfinite(logits).all()), "non-finite logits"
-    assert launches["radius_topk"] == 13 * forwards, launches
-    assert launches["pixel_topk"] == forwards, launches
-    emit({
-        "phase": "full", "config": "bench.py:106-117 (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16)",
-        "forwards": forwards, "ms_per_forward": dt * 1e3,
-        "points_per_s": cfg.batch_num * cfg.num_points[0] / dt, "launches": launches,
-        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
-        "logit_abs_max": float(logits.abs().max()), "card": smi,
-    })
+    full_row, launches = run_full("full", cfg, dev, batch, smi)
 
-    # ---- K3 at the level-0 gather-VJP sites of the bench configuration ----
+    # ---- K3 and K4 at the conv sites of the bench pyramid ----
     pyr = build_pyramid(p0, m0, spec)
-    enc = model.encoder.plan
-    dec = model.decoder.plan
+    enc, dec, _ = plan_architecture(cfg)
     n1 = pyr.points[1].shape[1]
     up_c = [e[1] for e in dec if "upsample" in e[0]][-1]  # the last upsample's width
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    k3_rows = []
+    k3_rows, k4_rows = [], []
     check_k3("k3_L0_simple", pyr.neighbors[0], cfg.num_points[0] + 1, enc[0][1], gen, k3_rows)
     check_k3("k3_L0_resnetb", pyr.neighbors[0], cfg.num_points[0] + 1, enc[1][2] // 4, gen, k3_rows)
     check_k3("k3_L0_strided", pyr.pools[0], cfg.num_points[0] + 1, enc[2][2] // 4, gen, k3_rows)
     check_k3("k3_L0_strided_maxpool", pyr.pools[0], cfg.num_points[0] + 1, enc[2][1], gen, k3_rows)
     check_k3("k3_L0_upsample", pyr.upsamples[0], n1 + 1, up_c, gen, k3_rows)
-    del model, pyr
+    top = len(pyr.points) - 1
+    for name, q_l, s_l, inds, entry, cin, cout in (
+        ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
+        ("k4_L0_resnetb", 0, 0, pyr.neighbors[0], enc[1], enc[1][2] // 4, enc[1][2] // 4),
+        ("k4_L0_strided", 1, 0, pyr.pools[0], enc[2], enc[2][2] // 4, enc[2][2] // 4),
+        (f"k4_L{top}_resnetb", top, top, pyr.neighbors[top], enc[-1], enc[-1][2] // 4, enc[-1][2] // 4),
+    ):
+        check_k4(name, pyr.points[q_l], pyr.masks[q_l], pyr.points[s_l], inds, cin, cout,
+                 entry[3], cfg, gen, k4_rows)
+    # the levels between, one ``resnetb`` site each, held but not timed
+    for l in range(1, top):
+        entry = next(e for e in enc if e[4] == l and e[0] == "resnetb")
+        check_k4(f"k4_L{l}_resnetb", pyr.points[l], pyr.masks[l], pyr.points[l], pyr.neighbors[l],
+                 entry[2] // 4, entry[2] // 4, entry[3], cfg, gen, k4_rows, timed=False)
+    del pyr
 
     # ---- train step: card against CPU on the same weights, f32 ----
     two_level = KPConfig(
@@ -418,62 +790,57 @@ def main() -> int:
         num_points=(256, 64), conv_neighbors=(10, 10), pool_neighbors=(10,),
         first_features_dim=32, num_views=2, image_height=24, image_width=32,
     )
-    check_train_parity("ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32", small, dev, resumed=True)
-    check_train_parity("6 blocks, 2 levels, N0=256, width 32, 2 views 24x32", two_level, dev, resumed=False)
+    check_train_parity("train_parity", small_label, small, dev, resumed=True)
+    check_train_parity("train_parity", "6 blocks, 2 levels, N0=256, width 32, 2 views 24x32", two_level, dev, resumed=False)
 
     # ---- the train step at full width ----
-    trainer = make_trainer(cfg, dev, seed=0)
-    frozen = {k: v.clone() for k, v in trainer.model.net_2d.state_dict().items()}
-    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not n.startswith("net_2d.")}
-    train_steps(trainer, batch, 1)  # warm-up (cuDNN autotune, allocator)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    k1.radius_topk.launches = 0
-    k2.pixel_topk.launches = 0
-    k3.segsum.launches = 0
-    steps = 5
-    t0 = time.perf_counter()
-    metrics = train_steps(trainer, batch, steps)
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    train_launches = {"radius_topk": k1.radius_topk.launches, "pixel_topk": k2.pixel_topk.launches,
-                      "segsum": k3.segsum.launches}
-    losses = [float(m["loss"]) for m in metrics]
-    n_gathers = trunk_gathers(trainer.model)
-    changed = sum(not torch.equal(p.detach(), start[n]) for n, p in trainer.model.named_parameters()
-                  if n in start)
-    assert all(np.isfinite(losses)), losses
-    assert all(torch.equal(v, frozen[k]) for k, v in trainer.model.net_2d.state_dict().items()), "net_2d moved"
-    assert changed == len(start), f"{len(start) - changed} trainable parameters did not move"
-    assert train_launches["segsum"] == n_gathers * steps, (train_launches, n_gathers)
-    assert train_launches["radius_topk"] == 13 * steps and train_launches["pixel_topk"] == steps, train_launches
-    emit({
-        "phase": "train_full", "config": "bench.py:106-117 train step (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16, banded_bf16)",
-        "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
-        "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": train_launches,
-        "trunk_gathers_with_grad": n_gathers, "params_moved": changed,
-        "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
-    })
+    train_row, train_launches = run_train_full("train_full", cfg, dev, batch, smi)
+
+    # ---- the fused KPConv path (K4): card against CPU, then full width ----
+    for fusion in ("early", "middle", "late"):
+        check_forward_parity("parity_fused", f"{small_label}, f32, fusion={fusion}, K4",
+                             small.replace(fusion=fusion, **FUSED_OPTIONS), dev)
+    check_train_parity("train_parity_fused", f"{small_label}, K4", small.replace(**FUSED_OPTIONS), dev, resumed=True)
+    fused = fused_config()
+    fused_row, fused_launches = run_full("full_fused", fused, dev, batch, smi, beside=full_row)
+    fused_train_row, fused_train_launches = run_train_full("train_full_fused", fused, dev, batch, smi, beside=train_row)
 
     l0 = k1_rows[0]
     bf16 = k2_rows[0]
     k3_main = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_bfloat16")
+    k4_main = next(r for r in k4_rows if r["phase"] == "k4_L0_resnetb_bfloat16")
+
+    def k4_entry(name, part, count):
+        return {"name": name, "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/kpconv.cu",
+                "replaces": "mvkpconv_tpu/ops/pallas/kpconv.py:135", "launches": count,
+                "max_abs_err": max(r[f"{part}_max_abs_err"] for r in k4_rows),
+                "ms": k4_main[part]["ms"], "plain_ms": k4_main[part]["plain_ms"],
+                "bound_ms": k4_main[part]["bound_ms"], "bound_by": k4_main[part]["bound_by"],
+                "library_ms": None}
+
     emit({"kernels": [
         {"name": "radius_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/radius_topk.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/radius_topk.py:121",
          "launches": launches["radius_topk"],
          "max_abs_err": max(r["max_d2_gap"] for r in k1_rows),
-         "ms": l0["ms"], "plain_ms": l0["plain_ms"]},
+         "ms": l0["ms"], "plain_ms": l0["plain_ms"], "bound_ms": l0["bound_ms"],
+         "bound_by": l0["bound_by"], "library_ms": None},
         {"name": "pixel_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pixel_select.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/pixel_select.py:97",
          "launches": launches["pixel_topk"],
          "max_abs_err": max(r["max_d2_gap"] for r in k2_rows),
-         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"]},
+         "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+         "bound_by": bf16["bound_by"], "library_ms": None},
         {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
          "launches": train_launches["segsum"],
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"]},
+         "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
+         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"]},
+        {**k4_entry("kpconv_fused", "fwd", fused_launches["kpconv_fused_fwd"]),
+         "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"]},
+        k4_entry("kpconv_fused_bwd_x", "bwd_x", fused_train_launches["kpconv_fused_bwd_x"]),
+        k4_entry("kpconv_wf", "wf", fused_train_launches["kpconv_wf"]),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ The JAX package beside it is the reference: this package mirrors its layout
 (``ops/``, ``models/``, ``training/config.py``, ``data/``) and keeps its
 public layouts (channel-last batch dicts, the ``Pyramid`` fields, the shadow
 index convention), so each module can be held against its counterpart.
-Selection kernels that the JAX package wrote in Pallas for the TPU are
+Every kernel that the JAX package wrote in Pallas for the TPU is
 hand-written CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch
 version beside it (``ops/kernels/``). The package imports torch and numpy,
 never jax.

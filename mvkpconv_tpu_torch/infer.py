@@ -2,10 +2,12 @@
 ``fn`` and of ``bench.py``'s ``infer``.
 
 ``build_pyramid(points, mask, spec)`` then ``model(batch, pyr)``, on the
-device the batch lies on. Usage::
+device the batch lies on. The model is built on the first CUDA device unless
+the caller names another (``device="cpu"`` runs every kernel's plain
+version). Usage::
 
-    cfg = bench_config()
-    model = make_model(cfg, device="cuda", seed=0)
+    cfg = bench_config()            # or fused_config(), or fusion="middle" / "late"
+    model = make_model(cfg, seed=0)
     batch = batch_to_device(make_batch(cfg, 4, np.random.RandomState(0)), "cuda")
     logits = infer(model, batch)  # (B, N0, num_classes) f32
 """
@@ -36,9 +38,35 @@ def bench_config() -> KPConfig:
     )
 
 
-def make_model(cfg, device="cpu", seed: int = 0) -> MVKPConv:
-    """An MV-KPConv in eval mode on ``device`` with weights drawn from ``seed``."""
-    model = MVKPConv(cfg).to(device)
+# The fused KPConv kernel runs only in blocks that get no precomputed
+# influence: the flag alone, under the default prebuilt cache, runs none.
+FUSED_OPTIONS = dict(use_pallas_kpconv=True, influence_cache="none")
+
+
+def fused_config() -> KPConfig:
+    """The bench configuration on the fused KPConv path: every rigid block
+    recomputes its influence inside kernel K4 and no (B, N, K, M) tensor is
+    kept."""
+    return bench_config().replace(**FUSED_OPTIONS)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the first CUDA device when none is named; raises where
+    that default has no card to run on."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the GPU unless the caller asks "
+            "for device='cpu' (the kernels' plain versions)"
+        )
+    return torch.device("cuda", 0)
+
+
+def make_model(cfg, device=None, seed: int = 0) -> MVKPConv:
+    """An MV-KPConv in eval mode with weights drawn from ``seed``, on
+    ``device`` (default: the first CUDA device; raises without one)."""
+    model = MVKPConv(cfg).to(resolve_device(device))
     init_parameters(model, seed)
     return model.eval()
 

@@ -8,7 +8,10 @@ package. Submodules carry the flax scope names (``KPConv``, ``bn``,
 Numerics follow the JAX package op by op:
   * ``compute_dtype``: the KP contraction (B,Nq,K,M)×(B,Nq,K,C) and its
     (M·Cin, Cout) product — operands rounded to ``compute_dtype``, products
-    accumulated in f32, the output f32;
+    accumulated in f32, the output f32. The fused kernel
+    (``use_pallas_kpconv``) rounds only the gathered features to
+    ``compute_dtype``: its influence and its weights stay f32, as in the JAX
+    package's fused branch;
   * float32: ``UnaryBlock``'s Dense, ``MaskedBatchNorm`` and all geometry
     (rigid influence and its distances).
 Blocks read ``self.training``: batch norm takes the masked batch statistics
@@ -27,6 +30,7 @@ from torch import nn
 
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
 from mvkpconv_tpu_torch.ops.gather import group_points, pad_shadow_row
+from mvkpconv_tpu_torch.ops.kernels.kpconv import kpconv_fused
 
 _DEFORM_TODO = "deformable / modulated KPConv is not ported yet (ROADMAP queue 1, P7 item 2)"
 
@@ -114,12 +118,18 @@ def kpconv_apply(
     aggregation: str = "sum",
     compute_dtype: torch.dtype = torch.float32,
     precomputed_influence: Optional[torch.Tensor] = None,
+    use_fused: bool = False,
 ) -> torch.Tensor:
     """Rigid kernel point convolution → (B, Nq, Cout) f32.
 
     With ``precomputed_influence`` (B, Nq, K, M) the geometry is skipped
     (features-only gather + contraction); otherwise positions ⊕ features
-    ride one gather and the influence is computed here.
+    ride one gather and the influence is computed here: by the fused kernel
+    (``ops/kernels/kpconv.py``) with ``use_fused``, linear influence and sum
+    aggregation, else by the einsum path. A precomputed influence wins over
+    ``use_fused``, as in the JAX package. The points carry no gradient (the
+    pyramid is an input), so the fused kernel gets the neighbor offsets
+    detached.
     """
     if precomputed_influence is not None:
         nx = group_points(pad_shadow_row(x), neighb_inds)
@@ -128,6 +138,12 @@ def kpconv_apply(
     payload = torch.cat([s_pad, pad_shadow_row(x.to(s_pts.dtype))], dim=-1)
     gathered = group_points(payload, neighb_inds)
     neighbors = gathered[..., :3] - q_pts[:, :, None, :]
+    if use_fused and influence == "linear" and aggregation == "sum":
+        m, cin, cout = weights.shape
+        return kpconv_fused(
+            neighbors.detach(), gathered[..., 3:].to(compute_dtype), kernel_pts.float(),
+            weights.reshape(m * cin, cout).float(), float(kp_extent),
+        )
     all_w = _influence(
         _kp_sq_dists(neighbors, kernel_pts), kp_extent, influence, aggregation
     )
@@ -199,14 +215,16 @@ class KPConvLayer(nn.Module):
     """The learned rigid KPConv op: kernel points + (M, Cin, Cout) weights.
 
     Kernel points span ``radius`` (the unit disposition times the conv
-    radius); ``kp_extent`` sets the influence width.
+    radius); ``kp_extent`` sets the influence width. ``use_fused`` sends a
+    call that gets no precomputed influence through the fused kernel.
     """
 
     def __init__(self, in_dim: int, out_dim: int, radius: float,
                  kp_extent: float, num_kernel_points: int = 15,
                  influence: str = "linear", aggregation: str = "sum",
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32, use_fused: bool = False):
         super().__init__()
+        self.use_fused = use_fused
         self.kp_extent = kp_extent
         self.influence = influence
         self.aggregation = aggregation
@@ -221,6 +239,7 @@ class KPConvLayer(nn.Module):
             self.kp_extent, self.influence, self.aggregation,
             compute_dtype=self.compute_dtype,
             precomputed_influence=precomputed_influence,
+            use_fused=self.use_fused,
         )
 
 
@@ -232,9 +251,7 @@ def _conv_site(block_name: str, layer: int, pyr):
 
 
 def _kpconv_layer(cfg, in_dim, out_dim, radius):
-    # every tail form, and the fused kernel, is the einsum contraction here
-    cfg.port_option("kpconv_tail")
-    cfg.port_option("use_pallas_kpconv")
+    cfg.port_option("kpconv_tail")  # every tail form is the einsum contraction here
     return KPConvLayer(
         in_dim, out_dim, radius,
         kp_extent=radius * cfg.kp_extent / cfg.conv_radius,
@@ -242,6 +259,7 @@ def _kpconv_layer(cfg, in_dim, out_dim, radius):
         influence=cfg.kp_influence,
         aggregation=cfg.aggregation_mode,
         compute_dtype=cfg.compute_dtype,
+        use_fused=cfg.port_option("use_pallas_kpconv"),
     )
 
 

@@ -110,7 +110,9 @@ def build_influence_cache(cfg, plans, pyr: Pyramid):
 def make_influence_cache(cfg, plans, pyr: Pyramid):
     """The prebuilt cache (``influence_cache='prebuilt'``), or None — every
     block computes its own influence — for ``'none'`` or when the cache
-    would exceed ``cfg.influence_cache_budget_mb``."""
+    would exceed ``cfg.influence_cache_budget_mb``. Only then do the blocks
+    reach the fused KPConv kernel (``use_pallas_kpconv``): a cache that exists
+    wins, and the flag alone runs the einsum path, as in the JAX package."""
     if cfg.port_option("influence_cache") == "none":
         return None
     needed = _influence_keys(plans)

@@ -1,21 +1,28 @@
-"""MV-KPConv early fusion (``mvkpconv_tpu/models/mvkpconv.py``).
+"""MV-KPConv: multi-view 2D features fused into KPConv, three variants
+(``mvkpconv_tpu/models/mvkpconv.py``).
 
-Lifted 64-d 2D features are concatenated into the level-0 input features
-before the KPFCNN encoder. The 2D network runs in the forward; with
-``freeze_2d`` (the default) it stays in eval mode when the model trains and
-runs under ``no_grad``, as the JAX model runs it with ``train=False`` and
-stops its gradient. The lift — depth unprojection, the projective pixel
-k-NN (kernel K2), one gather of pixel xyz ⊕ features and
-FeatureAggregation — runs on the batch's device; batches may instead carry
-precomputed ``knn_indices`` / ``image_xyz`` (or the whole lifted
-``feature_2d3d``).
+  * early: the lifted 64-d 2D features are concatenated into the level-0
+    input features before the KPFCNN encoder;
+  * middle: two parallel encoders (``encoder_3d`` on the 3D features,
+    ``encoder_2d`` on ones ⊕ the lifted features); the skip features are the
+    concatenation of both streams, the bottlenecks are merged by their
+    element-wise mean before one decoder;
+  * late: KPConv runs on the 3D features only; the lifted features are
+    concatenated with the decoder output right before the head.
 
-Middle and late fusion are not ported yet (ROADMAP queue 1, P7 item 1).
+The 2D network runs in the forward; with ``freeze_2d`` (the default) it stays
+in eval mode when the model trains and runs under ``no_grad``, as the JAX
+model runs it with ``train=False`` and stops its gradient. The lift — depth
+unprojection, the projective pixel k-NN (kernel K2), one gather of pixel
+xyz ⊕ features and FeatureAggregation — runs on the batch's device; batches
+may instead carry precomputed ``knn_indices`` / ``image_xyz`` (or the whole
+lifted ``feature_2d3d``). Submodules carry the flax scope names, so the
+weight bridge is a name-for-name walk for every variant.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 from torch import nn
@@ -38,8 +45,18 @@ from mvkpconv_tpu_torch.ops.unproject import (
 from mvkpconv_tpu_torch.training.config import as_torch_dtype
 
 
+def _middle_skip_extras(cfg3d, cfg2d):
+    """Per-decoder-block extra skip width from the 2D stream: middle fusion
+    concatenates the two streams' skip features, so each decoder concat block
+    sees ``skip_dims_3d[layer] + skip_dims_2d[layer]``."""
+    _, dec, _ = plan_architecture(cfg3d)
+    _, _, skip_dims_2d = plan_architecture(cfg2d)
+    return [skip_dims_2d[layer] if concat else 0 for (_n, _i, _o, _r, layer, concat) in dec]
+
+
 class MVKPConv(nn.Module):
-    """KPFCNN with multi-view 2D feature fusion (``cfg.fusion='early'``).
+    """KPFCNN with multi-view 2D feature fusion (``cfg.fusion`` selects the
+    variant).
 
     Batch dict (channel-last, as the JAX model takes it):
       features: (B, N0, C3d) base 3D features, C3d = in_features_dim − 64.
@@ -50,20 +67,45 @@ class MVKPConv(nn.Module):
 
     def __init__(self, cfg, freeze_2d: bool = True):
         super().__init__()
-        if cfg.fusion in ("middle", "late"):
-            raise NotImplementedError(
-                f"fusion={cfg.fusion!r} is not ported yet (ROADMAP queue 1, P7 item 1)"
-            )
-        if cfg.fusion != "early":
-            raise ValueError(f"MVKPConv requires fusion in early/middle/late, got {cfg.fusion!r}")
         self.cfg = cfg
         self.freeze_2d = freeze_2d
         self.net_2d = UNetResNet34(cfg.num_classes, dtype=cfg.compute_dtype)
         self.feat_aggreg = FeatureAggregation(cfg.feature_2d_dim, dtype=cfg.compute_dtype)
-        enc, dec, _ = plan_architecture(cfg)
-        self.encoder = KPFCNNEncoder(cfg, enc)
-        self.decoder = KPFCNNDecoder(cfg, dec)
-        self.head = KPFCNNHead(cfg, dec[-1][2])
+        cfg3d = cfg.replace(in_features_dim=cfg.in_features_dim - cfg.feature_2d_dim)
+        head_dim_extra = 0
+        if cfg.fusion == "early":
+            enc, dec, _ = plan_architecture(cfg)
+            self.encoder = KPFCNNEncoder(cfg, enc)
+            self.decoder = KPFCNNDecoder(cfg, dec)
+        elif cfg.fusion == "middle":
+            cfg2d = cfg.replace(in_features_dim=cfg.feature_2d_dim + 1)
+            enc3, dec3, _ = plan_architecture(cfg3d)
+            enc2, _, _ = plan_architecture(cfg2d)
+            self.encoder_3d = KPFCNNEncoder(cfg3d, enc3)
+            self.encoder_2d = KPFCNNEncoder(cfg2d, enc2)
+            # the decoder takes the concatenated skips of both streams
+            dec = [
+                (name, in_dim + extra, out_dim, r, layer, concat)
+                for (name, in_dim, out_dim, r, layer, concat), extra in zip(
+                    dec3, _middle_skip_extras(cfg3d, cfg2d)
+                )
+            ]
+            self.decoder = KPFCNNDecoder(cfg, dec)
+        elif cfg.fusion == "late":
+            enc, dec, _ = plan_architecture(cfg3d)
+            self.encoder = KPFCNNEncoder(cfg3d, enc)
+            self.decoder = KPFCNNDecoder(cfg3d, dec)
+            head_dim_extra = cfg.feature_2d_dim
+        else:
+            raise ValueError(f"MVKPConv requires fusion in early/middle/late, got {cfg.fusion!r}")
+        self.head = KPFCNNHead(cfg, dec[-1][2] + head_dim_extra)
+
+    @property
+    def encoders(self) -> Tuple[KPFCNNEncoder, ...]:
+        """The encoder streams: one, or (3D, 2D) for middle fusion."""
+        if self.cfg.fusion == "middle":
+            return (self.encoder_3d, self.encoder_2d)
+        return (self.encoder,)
 
     def train(self, mode: bool = True):
         super().train(mode)
@@ -103,13 +145,28 @@ class MVKPConv(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], pyr: Pyramid) -> torch.Tensor:
         """Per-point logits (B, N0, num_classes), f32."""
+        cfg = self.cfg
         points0 = pyr.points[0]
         if "feature_2d3d" in batch:
             feat_2d3d = batch["feature_2d3d"].float().detach()
         else:
             feat_2d3d = self.lift_2d_features(batch, points0)
-        infl = make_influence_cache(self.cfg, (self.encoder.plan, self.decoder.plan), pyr)
-        x = torch.cat([batch["features"].float(), feat_2d3d], dim=-1)
-        x, skips = self.encoder(x, pyr, infl)
-        x = self.decoder(x, skips, pyr, infl)
+        base = batch["features"].float()
+        # one influence cache for every rigid conv block, and for both
+        # middle-fusion encoders (the same geometry per level)
+        infl = make_influence_cache(cfg, (self.encoders[0].plan, self.decoder.plan), pyr)
+        if cfg.fusion == "early":
+            x, skips = self.encoder(torch.cat([base, feat_2d3d], dim=-1), pyr, infl)
+            x = self.decoder(x, skips, pyr, infl)
+        elif cfg.fusion == "middle":
+            x3d, skips3d = self.encoder_3d(base, pyr, infl)
+            ones = torch.ones_like(feat_2d3d[..., :1])
+            x2d, skips2d = self.encoder_2d(torch.cat([ones, feat_2d3d], dim=-1), pyr, infl)
+            x = 0.5 * (x3d + x2d)
+            skips = [torch.cat([a, b], dim=-1) for a, b in zip(skips3d, skips2d)]
+            x = self.decoder(x, skips, pyr, infl)
+        else:  # late
+            x, skips = self.encoder(base, pyr, infl)
+            x = self.decoder(x, skips, pyr, infl)
+            x = torch.cat([x, feat_2d3d], dim=-1)
         return self.head(x, pyr.masks[0])

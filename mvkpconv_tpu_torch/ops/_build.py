@@ -1,7 +1,8 @@
 """Builds ``csrc/*.cu`` into one shared library with a plain C interface.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a`` compiles every source of
-``mvkpconv_tpu_torch/csrc/`` at first use into
+``mvkpconv_tpu_torch/csrc/`` at first use (one ``nvcc -c`` per source, all
+started together, then one link) into
 ``mvkpconv_tpu_torch/_build/libmvkp_<hash>.so``, where the hash covers the
 sources and the flags, so a changed source rebuilds and an unchanged one is
 loaded as it is. The library is loaded with ``ctypes``; every pointer and
@@ -25,7 +26,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +38,12 @@ SIGNATURES = {
     "mvkp_pixel_topk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     # rows, rows_is_bf16, index, out, B, rows_per_b, Ns, C, stream
     "mvkp_segsum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # rel, x, x_is_bf16, ldx, kp, W, out, Q, K, M, Cin, Cout, extent, stream
+    "mvkp_kpconv_fwd": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # rel, g, kp, W, dx, Q, K, M, Cin, Cout, extent, stream
+    "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
+    "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 _LIB = None
@@ -76,14 +83,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    nvcc = find_nvcc()
+    stem = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{stem}.{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (s, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for s, o in zip(srcs, objs)
+    ]
+    logs, failed = [], []
+    for s, proc in procs:
+        text, _ = proc.communicate()
+        logs.append(f"==> {s.name} ({time.perf_counter() - t0:.3f} s)\n{text}")
+        if proc.returncode != 0:
+            failed.append(s.name)
+    tmp = BUILD_DIR / f"{stem}.tmp"
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True,
+        )
+        logs.append(f"==> link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     out.with_suffix(".log").write_text(f"nvcc seconds: {seconds:.3f}\n{log}")
     os.replace(tmp, out)
     return out

@@ -1,9 +1,12 @@
 """Where the inference slice's (or the train step's) time goes on one GPU.
 
-    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train] [--out DIR]
+    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train] [--fused] [--out DIR]
 
 At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
-120×160, width 128, bf16, seeded random weights) it prints one JSON line:
+120×160, width 128, bf16, seeded random weights), or with ``--fused`` at the
+same configuration on the fused KPConv path (``use_pallas_kpconv=True``,
+``influence_cache='none'``: kernel K4 in every conv block, no influence
+cache), it prints one JSON line:
 
   * ``stage_ms``: device time per forward (or per train step) by stage,
     from CUDA events around the unmodified code, mean of 5 runs after a
@@ -18,7 +21,8 @@ At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
     step, from ``torch.profiler`` over 3 runs.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
-``profile_train.txt``; default ``outputs/``, which git ignores).
+``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``;
+default ``outputs/``, which git ignores).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import numpy as np
 import torch
 
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
-from mvkpconv_tpu_torch.infer import batch_to_device, bench_config, make_model
+from mvkpconv_tpu_torch.infer import batch_to_device, bench_config, fused_config, make_model
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.train import make_trainer
 
@@ -114,12 +118,14 @@ def stage_ms(spans, train: bool):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--fused", action="store_true",
+                    help="the fused KPConv path (K4, no influence cache)")
     ap.add_argument("--out", default="outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    cfg = bench_config()
+    cfg = fused_config() if args.fused else bench_config()
     batch = batch_to_device(make_batch(cfg, cfg.batch_num, np.random.RandomState(0)), dev)
     spans = {}
     run = (train_runner if args.train else inference_runner)(cfg, dev, batch, spans)
@@ -143,7 +149,8 @@ def main(argv=None) -> None:
     )
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / ("profile_train.txt" if args.train else "profile_infer.txt")).write_text(
+    name = ("profile_train" if args.train else "profile_infer") + ("_fused" if args.fused else "")
+    (out / f"{name}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60)
     )
     smi = subprocess.run(
@@ -151,7 +158,9 @@ def main(argv=None) -> None:
         capture_output=True, text=True,
     ).stdout.strip()
     print(json.dumps({
-        "card": smi, "mode": "train" if args.train else "inference", "stage_ms": ms,
+        "card": smi, "mode": "train" if args.train else "inference",
+        "path": "fused (K4, influence_cache='none')" if args.fused else "default (einsum, prebuilt cache)",
+        "stage_ms": ms,
         "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 3e3,
         "top_kernels_ms": [
             [e.key[:80], e.self_device_time_total / 3e3, e.count // 3] for e in kernels[:15]

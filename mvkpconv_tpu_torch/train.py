@@ -5,7 +5,7 @@ step and of ``__graft_entry__.dryrun_multichip``'s step.
 the 2D net frozen, and the train step; ``train_steps`` runs it. Usage::
 
     cfg = bench_config()
-    trainer = make_trainer(cfg, device="cuda", seed=0)
+    trainer = make_trainer(cfg, seed=0)   # on the first CUDA device
     batch = batch_to_device(make_batch(cfg, 4, np.random.RandomState(0)), "cuda")
     metrics = train_steps(trainer, batch, 5)  # [{'loss', 'accuracy'}, ...]
 """
@@ -30,9 +30,10 @@ class Trainer(NamedTuple):
     step: Callable
 
 
-def make_trainer(cfg, device="cpu", seed: int = 0) -> Trainer:
-    """Model (weights from ``seed``, training mode) on ``device``, its
-    optimizer and its train step."""
+def make_trainer(cfg, device=None, seed: int = 0) -> Trainer:
+    """Model (weights from ``seed``, training mode) on ``device`` (default:
+    the first CUDA device; raises without one), its optimizer and its train
+    step."""
     model = make_model(cfg, device, seed).train()
     optimizer = make_optimizer(model, cfg, frozen_prefixes=FROZEN_PREFIXES)
     return Trainer(model, optimizer, make_train_step(model, cfg, optimizer))

@@ -14,7 +14,8 @@ kernel, influence cache policy, gather VJP). They are accepted so that
 configurations load unchanged; :meth:`KPConfig.port_option` maps each to
 the port's path for it and warns once per (field, value) where that path
 is another strategy. The gather VJP keeps three native modes (``scatter``,
-``banded``, ``banded_bf16``; see ``ops/gather.py``).
+``banded``, ``banded_bf16``; see ``ops/gather.py``), and ``use_pallas_kpconv``
+selects the port's own fused KPConv kernel.
 """
 
 from __future__ import annotations
@@ -66,8 +67,10 @@ _PORT_PATHS = {
         "auto": "einsum", "einsum": "einsum", "vpu": "einsum",
         "gform_dot": "einsum", "gform_vpu": "einsum",
     },
-    # the fused KPConv kernel (K4) is not ported yet: the einsum contraction
-    "use_pallas_kpconv": {False: False, True: False},
+    # the fused KPConv kernel (ops/kernels/kpconv.py); it runs only in blocks
+    # that get no precomputed influence (influence_cache='none', or a cache
+    # over influence_cache_budget_mb), as in the JAX package
+    "use_pallas_kpconv": {False: False, True: True},
     "influence_cache": {"prebuilt": "prebuilt", "none": "none", "lazy": "prebuilt"},
     # the group_points VJP (ops/gather.py): 'sorted' and 'window' are the
     # same exact segment sum under other TPU strategies, so kernel K3
@@ -81,7 +84,7 @@ _NATIVE = {
     "neighbor_method": ("binmin",),
     "pixel_select": ("pallas",),
     "kpconv_tail": ("auto", "einsum"),
-    "use_pallas_kpconv": (False,),
+    "use_pallas_kpconv": (False, True),
     "influence_cache": ("prebuilt", "none"),
     "gather_transpose": ("scatter", "banded", "banded_bf16"),
 }

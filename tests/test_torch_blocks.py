@@ -204,15 +204,77 @@ def test_block_matches_jax(spec, dtype):
     assert_close_rel(got, want, REL[dtype], rows)
 
 
+CONV_BLOCKS = [b for b in BLOCKS if "simple" in b[0] or "resnetb" in b[0]]
+
+
+@pytest.mark.parametrize("spec", CONV_BLOCKS, ids=[f"{b[0]}-{b[4]}" for b in CONV_BLOCKS])
+def test_fused_block_matches_jax(spec, monkeypatch):
+    """A conv block on the fused KPConv path (``use_pallas_kpconv=True``, no
+    influence cache; on CPU tensors the kernel's plain version) against the
+    JAX block under the same flags, which off the TPU runs its einsum path:
+    the same function up to reassociation and the form of d², f32, 1e-4."""
+    name, cin, cout, r, layer = spec
+    jpyr, tpyr = pyramids()
+    flags = dict(use_pallas_kpconv=True, influence_cache="none")
+    jcfg, cfg = JaxConfig(**CFG, **flags), KPConfig(**CFG, **flags)
+    x = np.random.RandomState(4).randn(2, jpyr.points[layer].shape[1], cin).astype(np.float32)
+    jblock = JB.block_decider(name, r, cin, cout, layer, jcfg)
+    variables = randomize(jblock.init(jax.random.PRNGKey(0), jnp.asarray(x), jpyr, False, None), 5)
+    want = np.asarray(jblock.apply(variables, jnp.asarray(x), jpyr, False, None))
+    block = B.block_decider(name, r, cin, cout, layer, cfg).eval()
+    assert block.KPConv.use_fused
+    convert.load_jax_variables(block, variables)
+    calls = []
+    fused = B.kpconv_fused
+    monkeypatch.setattr(B, "kpconv_fused", lambda *a: calls.append(a[1].shape) or fused(*a))
+    with torch.no_grad():
+        got = block(torch.from_numpy(x), tpyr)
+    assert len(calls) == 1 and calls[0][-1] == block.KPConv.weights.shape[1]
+    rows = np.asarray(jpyr.masks[layer + ("strided" in name)])
+    assert_close_rel(got, want, REL["float32"], rows)
+
+
+def test_fused_branch_is_taken_under_the_jax_conditions_only(monkeypatch):
+    """No precomputed influence, linear influence, sum aggregation; a cache
+    that exists wins, and any other variant runs the einsum path."""
+    _, tpyr = pyramids()
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(2, 256, 12).astype(np.float32))
+    w = torch.from_numpy((rng.randn(15, 12, 7) / 10).astype(np.float32))
+    kp = torch.from_numpy(kernel_point_positions(0.1, 15))
+    args = (tpyr.points[0], tpyr.points[0], tpyr.neighbors[0], x, kp, w, 0.12)
+    calls = []
+    fused = B.kpconv_fused
+    monkeypatch.setattr(B, "kpconv_fused", lambda *a: calls.append(a[1].dtype) or fused(*a))
+    ref = B.kpconv_apply(*args)
+    assert not calls  # the flag is off by default
+    got = B.kpconv_apply(*args, use_fused=True)
+    assert calls == [torch.float32]
+    assert_close_rel(got, ref.numpy(), 1e-5)
+    B.kpconv_apply(*args, use_fused=True, compute_dtype=torch.bfloat16)
+    assert calls == [torch.float32, torch.bfloat16]  # only the features are rounded
+    infl = B.rigid_influence(*args[:3], kp, 0.12)
+    B.kpconv_apply(*args, use_fused=True, precomputed_influence=infl)
+    B.kpconv_apply(*args, use_fused=True, influence="gaussian")
+    B.kpconv_apply(*args, use_fused=True, aggregation="closest")
+    assert len(calls) == 2
+    # the train path: features carry a gradient, the geometry none
+    xg = x.clone().requires_grad_(True)
+    wg = w.clone().requires_grad_(True)
+    B.kpconv_apply(*args[:3], xg, kp, wg, 0.12, use_fused=True).sum().backward()
+    want = torch.autograd.grad(B.kpconv_apply(*args[:3], xg, kp, wg, 0.12).sum(), (xg, wg))
+    np.testing.assert_allclose(xg.grad.numpy(), want[0].numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(wg.grad.numpy(), want[1].numpy(), rtol=1e-4, atol=1e-4)
+
+
 def test_unported_variants_raise():
     cfg = KPConfig(**CFG)
     with pytest.raises(NotImplementedError, match="P7"):
         B.block_decider("resnetb_deformable", 0.1, 16, 32, 0, cfg)
     with pytest.raises(NotImplementedError, match="P7"):
         B.block_decider("global_average", 0.1, 16, 32, 0, cfg)
-    for fusion in ("middle", "late"):
-        with pytest.raises(NotImplementedError, match="P7"):
-            MVKPConv(cfg.replace(fusion=fusion))
+    with pytest.raises(ValueError, match="fusion"):
+        MVKPConv(cfg.replace(fusion="none"))
     with pytest.raises(NotImplementedError, match="P7"):
         MVKPConv(cfg.replace(pixel_assoc="exact")).lift_2d_features(
             {"images": torch.zeros(1, 1, 8, 8, 3), "image_xyz": torch.zeros(1, 1, 8, 8, 3)},

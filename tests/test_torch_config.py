@@ -80,8 +80,10 @@ def test_tpu_strategies_map_to_the_port_path_with_one_warning():
         assert cfg.port_option("kpconv_tail") == "einsum"
         assert cfg.port_option("influence_cache") == "prebuilt"
         assert KPConfig().port_option("pixel_select") == "pallas"
-        assert KPConfig(use_pallas_kpconv=True).port_option("use_pallas_kpconv") is False
-    assert len(rec) == 4
+        # the fused KPConv kernel is ported: the flag selects it, without a warning
+        assert KPConfig(use_pallas_kpconv=True).port_option("use_pallas_kpconv") is True
+        assert KPConfig().port_option("use_pallas_kpconv") is False
+    assert len(rec) == 3
     with pytest.raises(ValueError):
         KPConfig(pixel_select="nope").port_option("pixel_select")
 

@@ -37,9 +37,10 @@ from mvkpconv_tpu.ops.unproject import (  # noqa: E402
 )
 from mvkpconv_tpu.training.config import KPConfig as JaxConfig  # noqa: E402
 from mvkpconv_tpu_torch.convert import load_jax_variables  # noqa: E402
-from mvkpconv_tpu_torch.infer import batch_to_device, infer  # noqa: E402
+from mvkpconv_tpu_torch.infer import batch_to_device, infer, make_model, resolve_device  # noqa: E402
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv  # noqa: E402
 from mvkpconv_tpu_torch.ops.pyramid import Pyramid  # noqa: E402
+from mvkpconv_tpu_torch.train import make_trainer  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -147,3 +148,28 @@ def test_trunk_given_jax_pyramid_and_association(dtype):
     with torch.no_grad():
         got = model(batch_to_device(batch, "cpu"), tpyr)
     assert_logits_close(got, want, batch["mask"], REL[dtype])
+
+
+@pytest.mark.parametrize("fusion", ["early", "middle", "late"])
+def test_entry_points_default_to_the_card_and_raise_without_one(fusion):
+    """``make_model(cfg)`` and ``make_trainer(cfg)`` build on ``cuda:0``; on a
+    host without a card they raise and never carry on on the CPU by
+    themselves. ``device='cpu'`` builds there (the kernels' plain versions)."""
+    cfg = KPConfig(**dict(CONFIGS["small"], fusion=fusion))
+    if torch.cuda.is_available():
+        assert resolve_device() == torch.device("cuda", 0)
+    else:
+        for build in (make_model, make_trainer):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build(cfg)
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build(cfg, None, seed=1)
+    model = make_model(cfg, device="cpu", seed=0)
+    assert not model.training
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    trainer = make_trainer(cfg, device="cpu", seed=0)
+    assert trainer.model.training and not trainer.model.net_2d.training
+    assert {p.device.type for p in trainer.model.parameters()} == {"cpu"}
+    _jcfg, batch, _pyr, _variables = setup("small")
+    logits = infer(model, batch_to_device(batch, "cpu"))
+    assert logits.shape == (2, 256, cfg.num_classes) and torch.isfinite(logits).all()
