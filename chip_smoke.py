@@ -6,11 +6,16 @@ Phases, each printed as one JSON line:
   1. device: the card (``nvidia-smi`` name and power limit), torch's CUDA
      version and the ``nvcc`` version; exits non-zero without a card;
   2. build: compiles ``mvkpconv_tpu_torch/csrc/*.cu`` with nvcc (sm_90a);
-  3. k1_*: the radius top-k kernel against its plain PyTorch version at the
-     main path's shapes of the bench configuration (level-0 conv, pool and
-     upsample, one deep level) and at k=100: indices equal, or differing only where the
-     selected d² tie within 2⁻²⁰ relative; kernel and plain times (CUDA
-     events, after a warm-up);
+  3. k1_*: the radius top-k kernel against its plain PyTorch version at each
+     of the 13 shapes one forward of the bench configuration launches (5
+     conv, 4 pool, 4 upsample) and at k=100: indices equal, or differing only
+     where the selected d² tie within 2⁻²⁰ relative; kernel and plain times
+     (CUDA events, after a warm-up), their sum over the 13 calls
+     (``k1_forward_sum``), and the time of the kernel this one replaced
+     (``earlier_ms``); k1_adv_*, untimed, on inputs made to break a skip of
+     supports by their boxes: shuffled points, supports at and around
+     rounded d² = r² of a query in another group, a padded tail, Ns = 1000
+     and Ns < k;
   4. k2_*: the pixel top-k kernel against its plain version at bench shapes
      (B=4, N=16384, V=5, 120×160, window 7, k=3), bf16 and f32 candidates;
   5. parity: the whole slice on the card (kernels) against the CPU (plain
@@ -19,8 +24,9 @@ Phases, each printed as one JSON line:
      valid points;
   6. full: the slice at the bench configuration (B=4, N0=16384, 5 levels,
      K=30, 5 views of 120×160, width 128, bf16) with seeded random weights:
-     finite logits of shape (4, 16384, 20), 13 radius top-k launches and 1
-     pixel top-k launch per forward, ms per forward and points/s;
+     finite logits of shape (4, 16384, 20), 13 radius top-k calls (26 device
+     launches: each call a box pre-pass and the search) and 1 pixel top-k
+     launch per forward, ms per forward and points/s;
   7. k3_*: the gather-VJP segment sum against its plain version at the
      bench configuration's level-0 gather sites (the pyramid's voxel-sorted
      indices, seeded normal rows, f32 and bf16): each element within
@@ -45,8 +51,12 @@ Phases, each printed as one JSON line:
      ``simple`` 66→64 and ``resnetb`` 32→32, the first ``resnetb_strided``,
      the deepest ``resnetb`` 512→512), f32 and bf16 features: each element
      within 2⁻¹⁸ · Σ|terms| of the plain version, both judged against a
-     float64 evaluation; kernel, plain and einsum-chain times; the same
-     checks without the times at one ``resnetb`` site of every level between;
+     float64 evaluation; the forward run twice and equal bit for bit; kernel,
+     plain and einsum-chain times, the forward's beside the time of the
+     kernel it replaced (``earlier_ms``); the same checks without the times
+     at one ``resnetb`` site of every level between; k4_shape_*: the forward,
+     untimed, at shapes off the bench's (K up to 128, M up to 32, widths of 1,
+     5, 31, 33, 70 channels, feature rows at 2-, 4- and 16-byte alignment);
  11. parity_fused: the forward on the card (K4) against the CPU (plain) with
      ``use_pallas_kpconv=True, influence_cache='none'`` at the configuration
      of phase 5, for early, middle and late fusion; train_parity_fused: the
@@ -144,7 +154,24 @@ def pairs_within(query, support, r2):
     return total
 
 
-def check_k1(name, query, support, radius, k, results):
+# Times of the kernels that the present K1 and K4 forward replaced, ms, from
+# this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel tables).
+EARLIER_MS = {
+    "k1_L0_conv": 3.126, "k1_L0_pool": 1.866, "k1_L0_upsample": 0.154, "k1_L3_conv": 0.106,
+    "k1_L2_conv_k100": 1.372,
+    "k4_L0_simple_float32": 1.621, "k4_L0_simple_bfloat16": 1.577,
+    "k4_L0_resnetb_float32": 0.648, "k4_L0_resnetb_bfloat16": 0.501,
+    "k4_L0_strided_float32": 0.171, "k4_L0_strided_bfloat16": 0.146,
+    "k4_L4_resnetb_float32": 0.294, "k4_L4_resnetb_bfloat16": 0.275,
+}
+EARLIER_FROM = "the kernel before its redesign (PERF.md)"
+
+
+def check_k1(name, query, support, radius, k, results, timed=True):
+    """K1 against its plain version on one (query, support) pair: equal
+    indices, or rows that differ only where the selected d² tie within 2⁻²⁰
+    relative; with ``timed`` also the kernel's and the plain version's times
+    and the bound."""
     import torch
     from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
 
@@ -166,6 +193,13 @@ def check_k1(name, query, support, radius, k, results):
     assert got.shape == want.shape and got.dtype == torch.int32, name
     assert bool(((got >= 0) & (got <= ns)).all()), name
     assert gap <= TIE_REL, f"{name}: K1 disagrees with its plain version (d² gap {gap})"
+    if not timed:
+        row = {"phase": name, "nq": query.shape[1], "ns": ns, "b": query.shape[0], "k": k,
+               "radius": radius, "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap,
+               "max_d2_gap": gap_abs, "found": int((got < ns).sum())}
+        emit(row)
+        results.append(row)
+        return got
     ms = cuda_ms(lambda: k1.radius_topk(query, support, radius, k), reps=20)
     plain_ms = cuda_ms(lambda: k1.radius_topk_plain(query, support, radius, k), reps=3, warmup=1)
     in_radius = pairs_within(query, support, k1.squared_radius(radius))
@@ -173,15 +207,96 @@ def check_k1(name, query, support, radius, k, results):
         "phase": name, "nq": query.shape[1], "ns": ns, "b": query.shape[0], "k": k,
         "radius": radius, "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs,
         "ms": ms, "plain_ms": plain_ms, "pairs_in_radius": in_radius,
-        "pairs_scanned_by_kernel": query.shape[0] * query.shape[1] * ns,
+        "pairs": query.shape[0] * query.shape[1] * ns,
         # the function needs a d² (8 operations) and a comparison only for
         # the pairs within the radius in this run's data: an exact search may
-        # skip every other support by its cell. The present kernel scans every
-        # pair of a batch element, which is its cost and not the function's.
+        # skip every other support by its box.
         **bound(nbytes(query, support, got), 9.0 * in_radius),
     }
+    if name in EARLIER_MS:
+        row.update({"earlier_ms": EARLIER_MS[name], "earlier_from": EARLIER_FROM})
     emit(row)
     results.append(row)
+    return got
+
+
+def forward_k1_calls(spec, levels):
+    """(name, queries, supports, radius, k) of the 13 selections one pyramid
+    makes, as ``build_pyramid`` makes them."""
+    calls = []
+    for l, (p, _) in enumerate(levels):
+        calls.append((f"k1_L{l}_conv", p, p, spec.radius(l), spec.conv_k(l)))
+        if l + 1 < len(levels):
+            sub, rp = levels[l + 1][0], spec.pool_radius(l)
+            calls.append((f"k1_L{l}_pool", sub, p, rp, spec.pool_k(l)))
+            calls.append((f"k1_L{l}_upsample", p, sub, 2.0 * rp, 1))
+    return calls
+
+
+def check_k1_adversarial(p0, radius, k, results):
+    """K1 on inputs made to break a skip of supports by their boxes, untimed:
+    shuffled points; a support at rounded d² just under and exactly at r² of
+    a query in another group; a padded tail; Ns that is no multiple of a
+    group; Ns < k."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
+
+    dev = p0.device
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(0)
+    b, n, _ = p0.shape
+    perm = torch.stack([torch.randperm(n, generator=gen) for _ in range(b)]).to(dev)
+    shuffled = torch.gather(p0, 1, perm[..., None].expand(b, n, 3)).contiguous()
+    check_k1("k1_adv_shuffled", shuffled, shuffled, radius, k, results, timed=False)
+    check_k1("k1_adv_shuffled_supports", p0, shuffled, radius, k, results, timed=False)
+
+    # Boundary: supports far from the cloud, at x offsets around the radius
+    # from queries at x = 0 that sit in other groups (the sorted cloud keeps its
+    # order; the probes are appended, so their groups' boxes are their own).
+    r = np.float32(radius)
+    r2 = np.float32(k1.squared_radius(radius))
+    base = np.array([0.0, 100.0, 0.0], np.float32)  # x = 0: the offsets below are exact
+    offs = []
+    for start in (r, np.nextafter(r, np.float32(0)), np.nextafter(r, np.float32(1))):
+        d = start
+        for _ in range(4):  # a few neighbours of the radius on either side
+            offs.append(d)
+            d = np.nextafter(d, np.float32(0))
+    # the rounded d² of each probe, as the kernel forms it: (x_q − x_s)², y = z = 0
+    probes_q = np.tile(base, (len(offs), 1))
+    probes_q[:, 1] += np.arange(len(offs), dtype=np.float32) * 5.0  # probes do not see each other
+    probes_s = probes_q.copy()
+    probes_s[:, 0] = probes_q[:, 0] + np.asarray(offs, np.float32)
+    dx = probes_q[:, 0] - probes_s[:, 0]
+    d2 = (dx * dx).astype(np.float32)
+    assert (d2 < r2).any() and (d2 >= r2).any() and len(probes_q) < 32, "probes do not straddle r²"
+    # queries: the cloud then the probe queries; supports: the cloud, 40
+    # far fillers (so the probe supports start a group of their own), then the
+    # probe supports
+    filler = np.tile(np.array([[-50.0, -50.0, -50.0]], np.float32), (40 + (-n - 40) % 32, 1))
+    q_np = np.concatenate([p0[0].cpu().numpy(), probes_q])[None]
+    s_np = np.concatenate([p0[0].cpu().numpy(), filler, probes_s])[None]
+    q_t, s_t = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    got = check_k1("k1_adv_boundary", q_t, s_t, radius, k, results, timed=False)
+    first = got[0, n:, 0].cpu().numpy()
+    want_first = np.where(d2 < r2, n + len(filler) + np.arange(len(offs)), s_np.shape[1])
+    assert (first == want_first).all(), f"k1_adv_boundary: probes at the radius: {first} != {want_first}"
+    emit({"phase": "k1_adv_boundary_probes", "probes": len(offs), "within": int((d2 < r2).sum()),
+          "exactly_at_r2": int((d2 == r2).sum()), "beyond": int((d2 > r2).sum())})
+
+    # a padded tail: a few hundred rows at the shadow coordinate
+    padded = p0.clone()
+    padded[:, -300:] = 1e6
+    got = check_k1("k1_adv_padded_tail", padded, padded, radius, k, results, timed=False)
+    tail = got[:, -300:].cpu()
+    assert bool((tail == torch.arange(n - 300, n - 300 + k, dtype=torch.int32)).all()), \
+        "padded queries must select the first k padded supports"
+    # Ns no multiple of the group size, and fewer supports than k
+    some = p0[:, :3000].contiguous()
+    check_k1("k1_adv_ns1000", some, p0[:, :1000].contiguous(), radius, k, results, timed=False)
+    check_k1("k1_adv_ns_below_k", some, p0[:, :k - 7].contiguous(), 4 * radius, k, results, timed=False)
+    check_k1("k1_adv_ns_below_k_k1", some, p0[:, 5:6].contiguous(), 40 * radius, 1, results, timed=False)
 
 
 def check_k2(name, points, image_xyz, iu0, iv0, window, k, results):
@@ -318,6 +433,8 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
         ref = k4.kpconv_fused_plain(rel64, nx.double(), kp64, w64, extent)
         allow = KPCONV_REL * k4.kpconv_fused_plain(rel, a_nx, kp, a_w, extent) + torch.matmul(ones_wf, a_w)
         assert got.shape == (b, n, cout) and got.dtype == torch.float32, name
+        again = k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent)
+        assert torch.equal(got, again), f"{name} {dt}: K4's forward differs from run to run"
         checks["fwd"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
                          float((got - want).abs().max()))
         # the cotangent of the gathered features
@@ -386,6 +503,7 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
                 "plain_ms": cuda_ms(lambda: k4.kpconv_fused_plain(rel, nx, kp, w2d, extent), reps),
                 "einsum_chain_ms": cuda_ms(lambda: blocks._contract(infl_c, nx, w3, nx.dtype), reps),
                 **bound(fwd_in + 4 * q * cout, infl_ops + 2 * nnz * cin + 2.0 * q * m * cin * cout),
+                "earlier_ms": EARLIER_MS.get(f"{name}_{dt}"), "earlier_from": EARLIER_FROM,
             },
             "bwd_x": {
                 "ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent), reps),
@@ -403,6 +521,49 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
             "einsum_chain_fwd_bwd_ms": cuda_ms(chain_fwd_bwd, reps),
         })
         emit(row)
+
+
+def check_k4_shapes(dev, gen, results):
+    """K4's forward off the bench shapes, untimed, held like ``check_k4``:
+    more than 16 kernel points and more than 16 or 32 neighbors (several
+    tiles and halves of the per-query product), a single neighbor, kernel
+    point and channel, widths that are no multiple of a chunk, and feature
+    rows at 16-, 4- and 2-byte alignment (a column slice of a wider tensor),
+    with shadow neighbors and padded queries, f32 and bf16."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
+
+    shapes = [  # queries, K, M, Cin, Cout, columns before the features
+        (1000, 40, 20, 5, 7, 0), (77, 128, 32, 70, 33, 0), (300, 1, 1, 1, 1, 0), (513, 30, 15, 66, 64, 3),
+        (200, 33, 17, 32, 32, 0), (4096, 30, 15, 33, 40, 1), (129, 8, 16, 31, 65, 0), (64, 100, 15, 128, 128, 0),
+    ]
+    extent = 1.2
+    for q, k, m, cin, cout, before in shapes:
+        rel = torch.randn(1, q, k, 3, generator=gen, device=dev) * 0.6
+        far = torch.rand(q, 1, 1, generator=gen, device=dev) < 0.2
+        rel[0, :, k // 2:] += far * 1e6  # shadow neighbors
+        rel[0, ::7] = 0.0  # padded queries: every neighbor on the centre kernel point
+        kp = torch.randn(m, 3, generator=gen, device=dev) * 0.5
+        kp[0] = 0.0
+        w2d = torch.randn(m * cin, cout, generator=gen, device=dev) / (m * cin) ** 0.5
+        wide = torch.randn(1, q, k, before + cin, generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            nx = wide.to(dt)[..., before:]
+            got = k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent)
+            want = k4.kpconv_fused_plain(rel, nx, kp, w2d, extent)
+            ref = k4.kpconv_fused_plain(rel.double(), nx.double(), kp.double(), w2d.double(), extent)
+            a_nx, a_w = nx.float().abs(), w2d.abs()
+            allow = KPCONV_REL * k4.kpconv_fused_plain(rel, a_nx, kp, a_w, extent) + torch.matmul(
+                KPCONV_INFLUENCE_ABS * a_nx.sum(2).repeat(1, 1, m), a_w) + 1e-30
+            vs_plain = float(((got - want).abs() / allow).max())
+            vs_f64 = float(((got - ref).abs() / allow).max())
+            name = f"k4_shape_q{q}_k{k}_m{m}_{cin}to{cout}_ld{before + cin}_{str(dt)[6:]}"
+            assert bool(torch.isfinite(got).all()) and vs_plain <= 1.0 and vs_f64 <= 1.0, (name, vs_plain, vs_f64)
+            assert torch.equal(got, k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent)), f"{name}: differs from run to run"
+            row = {"phase": name, "fwd_err_over_allowance": vs_plain, "fwd_err_vs_f64_over_allowance": vs_f64,
+                   "fwd_max_abs_err": float((got - want).abs().max())}
+            emit(row)
+            results.append(row)
 
 
 def trunk_gathers(model):
@@ -556,12 +717,18 @@ def kernel_counters():
 
 
 def reset_launches():
-    for fn in kernel_counters().values():
+    counters = kernel_counters()
+    for fn in counters.values():
         fn.launches = 0
+    counters["radius_topk"].device_launches = 0
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    """Each wrapper's count of calls that launched its kernel; K1 makes two
+    device launches a call (the box pre-pass and the search), counted too."""
+    counters = kernel_counters()
+    return {**{name: fn.launches for name, fn in counters.items()},
+            "radius_topk_device": counters["radius_topk"].device_launches}
 
 
 def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
@@ -585,6 +752,7 @@ def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
     assert tuple(logits.shape) == (cfg.batch_num, cfg.num_points[0], cfg.num_classes), logits.shape
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
     assert launches["radius_topk"] == 13 * forwards, launches
+    assert launches["radius_topk_device"] == 26 * forwards, launches
     assert launches["pixel_topk"] == forwards, launches
     assert launches["kpconv_fused_fwd"] == (n_conv * forwards if runs_k4(cfg) else 0), (launches, n_conv)
     assert launches["segsum"] == launches["kpconv_fused_bwd_x"] == launches["kpconv_wf"] == 0, launches
@@ -644,6 +812,7 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     assert launches["segsum"] == n_gathers * steps, (launches, n_gathers)
     assert sorted(seen) == gather_vjp_widths(trainer.model, fused), (sorted(seen), fused)
     assert launches["radius_topk"] == 13 * steps and launches["pixel_topk"] == steps, launches
+    assert launches["radius_topk_device"] == 26 * steps, launches
     assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
     assert launches["kpconv_fused_bwd_x"] == (n_bwd_x * steps if fused else 0), (launches, n_bwd_x)
     row = {
@@ -726,12 +895,18 @@ def main() -> int:
         sub = grid_subsample(levels[-1][0], spec.cell_size(l), spec.num_points[l], mask=levels[-1][1])
         levels.append((sub.points, sub.mask))
     k1_rows, k2_rows = [], []
-    check_k1("k1_L0_conv", p0, p0, spec.radius(0), spec.conv_k(0), k1_rows)
-    check_k1("k1_L0_pool", levels[1][0], p0, spec.pool_radius(0), spec.pool_k(0), k1_rows)
-    check_k1("k1_L0_upsample", p0, levels[1][0], 2 * spec.pool_radius(0), 1, k1_rows)
-    check_k1("k1_L3_conv", levels[3][0], levels[3][0], spec.radius(3), spec.conv_k(3), k1_rows)
-    # off the main path: the widest list (k > 64, the instance that spills)
+    calls = forward_k1_calls(spec, levels)
+    assert len(calls) == 13, len(calls)
+    for call in calls:
+        check_k1(*call, k1_rows)
+    emit({"phase": "k1_forward_sum", "calls": len(calls),
+          "ms": sum(r["ms"] for r in k1_rows), "plain_ms": sum(r["plain_ms"] for r in k1_rows),
+          "bound_ms": sum(r["bound_ms"] for r in k1_rows),
+          "earlier_ms_of": {n: EARLIER_MS[n] for n, *_ in calls if n in EARLIER_MS}})
+    # off the main path: more supports within the radius (283 a query) than the list holds
     check_k1("k1_L2_conv_k100", levels[2][0], levels[2][0], spec.radius(2), 100, k1_rows)
+    k1_adv_rows = []
+    check_k1_adversarial(p0, spec.radius(0), spec.conv_k(0), k1_adv_rows)
 
     image_xyz, _ = unproject_depth(batch["depth"], batch["intrinsics"], batch["poses"])
     u, v = project_to_views(p0, batch["intrinsics"], batch["poses"])
@@ -782,6 +957,8 @@ def main() -> int:
         check_k4(f"k4_L{l}_resnetb", pyr.points[l], pyr.masks[l], pyr.points[l], pyr.neighbors[l],
                  entry[2] // 4, entry[2] // 4, entry[3], cfg, gen, k4_rows, timed=False)
     del pyr
+    k4_shape_rows = []
+    check_k4_shapes(dev, gen, k4_shape_rows)
 
     # ---- train step: card against CPU on the same weights, f32 ----
     two_level = KPConfig(
@@ -813,7 +990,8 @@ def main() -> int:
     def k4_entry(name, part, count):
         return {"name": name, "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/kpconv.cu",
                 "replaces": "mvkpconv_tpu/ops/pallas/kpconv.py:135", "launches": count,
-                "max_abs_err": max(r[f"{part}_max_abs_err"] for r in k4_rows),
+                "max_abs_err": max(r[f"{part}_max_abs_err"]
+                                   for r in k4_rows + (k4_shape_rows if part == "fwd" else [])),
                 "ms": k4_main[part]["ms"], "plain_ms": k4_main[part]["plain_ms"],
                 "bound_ms": k4_main[part]["bound_ms"], "bound_by": k4_main[part]["bound_by"],
                 "library_ms": None}
@@ -822,7 +1000,8 @@ def main() -> int:
         {"name": "radius_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/radius_topk.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/radius_topk.py:121",
          "launches": launches["radius_topk"],
-         "max_abs_err": max(r["max_d2_gap"] for r in k1_rows),
+         "device_launches": launches["radius_topk_device"],
+         "max_abs_err": max(r["max_d2_gap"] for r in k1_rows + k1_adv_rows),
          "ms": l0["ms"], "plain_ms": l0["plain_ms"], "bound_ms": l0["bound_ms"],
          "bound_by": l0["bound_by"], "library_ms": None},
         {"name": "pixel_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pixel_select.cu",

@@ -8,7 +8,9 @@ sources and the flags, so a changed source rebuilds and an unchanged one is
 loaded as it is. The library is loaded with ``ctypes``; every pointer and
 the stream pass as ``c_void_p``. Nothing here runs on import: the wrappers
 call :func:`library` only when they are handed a CUDA tensor. A missing
-``nvcc`` or a failed build raises.
+``nvcc`` or a failed build raises. A measurement tool may ask for preprocessor
+symbols (``library(defines=("MVKP_CYCLES",))``: the forward KPConv kernel's
+cycle counters) before anything else has loaded the library.
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ NVCC_FLAGS = (
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    # query, support, out, B, Nq, Ns, r2, k, stream
-    "mvkp_radius_topk": (_P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # query, support, out, packed, boxes, super_boxes, B, Nq, Ns, r2, k, stream
+    "mvkp_radius_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # points, image_xyz, image_is_bf16, iu0, iv0, out,
     # B, N, V, H, W, window, k, stream
     "mvkp_pixel_topk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -40,10 +42,14 @@ SIGNATURES = {
     "mvkp_segsum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
     # rel, x, x_is_bf16, ldx, kp, W, out, Q, K, M, Cin, Cout, extent, stream
     "mvkp_kpconv_fwd": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # queries per block (0: planned)
+    "mvkp_kpconv_fwd_tune": (_I,),
     # rel, g, kp, W, dx, Q, K, M, Cin, Cout, extent, stream
     "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
     "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
+    # out[6] on the host; only in a build with MVKP_CYCLES
+    "mvkp_kpconv_fwd_cycles": (_P,),
 }
 
 _LIB = None
@@ -64,22 +70,24 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(srcs, flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the sources if the library for their hash is missing. The
-    compiler's output (``-Xptxas -v``: registers, spills, shared memory per
-    kernel) and the build seconds go to the ``.log`` beside the library."""
+def build(defines=()) -> Path:
+    """Compile the sources, with ``-D`` for each of ``defines``, if the library
+    for their hash is missing. The compiler's output (``-Xptxas -v``:
+    registers, spills, shared memory per kernel) and the build seconds go to
+    the ``.log`` beside the library."""
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out = BUILD_DIR / f"libmvkp_{_digest(srcs)}.so"
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    out = BUILD_DIR / f"libmvkp_{_digest(srcs, flags)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -88,7 +96,7 @@ def build() -> Path:
     objs = [BUILD_DIR / f"{stem}.{s.stem}.o" for s in srcs]
     t0 = time.perf_counter()
     procs = [
-        (s, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+        (s, subprocess.Popen([nvcc, *flags, "-c", "-o", str(o), str(s)],
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         for s, o in zip(srcs, objs)
     ]
@@ -118,15 +126,17 @@ def build() -> Path:
     return out
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def library(defines=()) -> ctypes.CDLL:
+    """The loaded kernel library, built on the first call, which alone decides
+    the ``defines``."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = ctypes.CDLL(str(build(defines)))
         for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
+            fn = getattr(lib, name, None)  # the cycle counters exist only with their define
+            if fn is not None:
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -12,7 +12,11 @@ Shadow query rows (at SHADOW_COORD) are at d² = 0 from shadow support rows
 and select them; valid rows never see padding (it is out of every radius).
 
 CPU tensors take :func:`radius_topk_plain`; CUDA tensors launch
-``csrc/radius_topk.cu`` or raise.
+``csrc/radius_topk.cu`` or raise. The kernel skips groups of 32 consecutive
+supports (and super-groups of 32 groups) whose bounding box lies out of the
+query's radius; :func:`group_boxes` and :func:`box_lower_bound` are that
+test's arithmetic in PyTorch, operation by operation, so that the CPU tests
+can hold it: the bound never exceeds the rounded d² of a pair it covers.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import torch
 from mvkpconv_tpu_torch.ops.common import check_tensor
 
 K_MAX = 128  # the kernel's largest list capacity
+GROUP = 32  # csrc/radius_topk.cu kGroup: supports per box
+SUPER = 32  # csrc/radius_topk.cu kSuper: boxes per super-group box
 _INF_BITS = 0x7F800000  # float32 +inf
 
 
@@ -64,6 +70,33 @@ def radius_topk_plain(
     return idx
 
 
+def group_boxes(points: torch.Tensor, group: int = GROUP):
+    """(lo, hi), each (B, ceil(N / group), 3): the bounding boxes of runs of
+    ``group`` consecutive points, the last run over the points it has. Taken
+    from the data, whatever its order; applied to ``lo`` and ``hi`` in turn
+    it gives the super-group boxes."""
+    b, n, _ = points.shape
+    pad = -n % group
+    if pad:
+        # a slot past the end repeats its run's first point, as the kernel's lanes do
+        first = points[:, n - (n % group)][:, None, :].expand(b, pad, 3)
+        points = torch.cat([points, first], dim=1)
+    runs = points.reshape(b, -1, group, 3)
+    return runs.amin(dim=2), runs.amax(dim=2)
+
+
+def box_lower_bound(q_lo, q_hi, s_lo, s_hi) -> torch.Tensor:
+    """A lower bound of the rounded d² between any point of the box
+    [q_lo, q_hi] and any point of the box [s_lo, s_hi] (…, 3 each, broadcast;
+    a point is the box with lo = hi): the kernel skips a group iff this is
+    ≥ r². Per axis the gap max(s_lo − q_hi, q_lo − s_hi, 0) never exceeds the
+    rounded |q − s| (f32 subtraction is monotone and symmetric), and the
+    squares and sums are those of d², in its order, monotone in each
+    non-negative argument."""
+    gap = torch.maximum(torch.maximum(s_lo - q_hi, q_lo - s_hi), torch.zeros_like(s_lo))
+    return (gap[..., 0] * gap[..., 0] + gap[..., 1] * gap[..., 1]) + gap[..., 2] * gap[..., 2]
+
+
 def check_args(query: torch.Tensor, support: torch.Tensor, k: int) -> None:
     """Raise on anything the CUDA kernel does not take."""
     check_tensor("query", query, torch.float32, 3)
@@ -96,15 +129,25 @@ def radius_topk(
 
     lib = _build.library()
     out = torch.empty((b, nq, k), dtype=torch.int32, device=query.device)
+    # scratch of the box pre-pass, in float4s: the packed supports, a (lo, hi)
+    # pair per group and per super-group
+    groups = -(-ns // GROUP)
+    supers = -(-groups // SUPER)
+    scratch = torch.empty((b * (ns + 2 * groups + 2 * supers), 4), dtype=torch.float32,
+                          device=query.device)
+    boxes, super_boxes = scratch[b * ns:], scratch[b * (ns + 2 * groups):]
     with torch.cuda.device(query.device):
         stream = torch.cuda.current_stream(query.device).cuda_stream
         rc = lib.mvkp_radius_topk(
             query.data_ptr(), support.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), boxes.data_ptr(), super_boxes.data_ptr(),
             b, nq, ns, squared_radius(radius), k, stream,
         )
     _build.check_launch("radius_topk", rc)
     radius_topk.launches += 1
+    radius_topk.device_launches += 2
     return out
 
 
-radius_topk.launches = 0
+radius_topk.launches = 0  # calls that reached the kernel
+radius_topk.device_launches = 0  # kernels launched: the box pre-pass and the search

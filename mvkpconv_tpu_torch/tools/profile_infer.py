@@ -6,7 +6,8 @@ At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
 120×160, width 128, bf16, seeded random weights), or with ``--fused`` at the
 same configuration on the fused KPConv path (``use_pallas_kpconv=True``,
 ``influence_cache='none'``: kernel K4 in every conv block, no influence
-cache), it prints one JSON line:
+cache), it prints one line per hand-written kernel (its device time and
+launches per forward or step) and then one JSON line:
 
   * ``stage_ms``: device time per forward (or per train step) by stage,
     from CUDA events around the unmodified code, mean of 5 runs after a
@@ -18,7 +19,10 @@ cache), it prints one JSON line:
     autograd with every trunk gather's VJP through K3) and the optimizer
     (value clip and SGD);
   * ``device_busy_ms`` and the top kernels by device time, per forward or
-    step, from ``torch.profiler`` over 3 runs.
+    step, from ``torch.profiler`` over 3 runs; ``kernel_sums_ms``: the
+    hand-written kernels' device time per forward or step, summed by kernel
+    (K1 = the box pre-pass and the search, K4's forward, ``bwd_x`` and ``wf``,
+    K2, K3), with their launches.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
 ``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``;
@@ -41,6 +45,15 @@ from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.train import make_trainer
 
 STAGES = ("net_2d", "feat_aggreg", "encoder", "decoder", "head")
+# the hand-written kernels, by a part of their profiler names
+OWN_KERNELS = {
+    "k1_radius_topk": ("radius_topk_kernel", "radius_boxes_kernel"),
+    "k2_pixel_topk": ("pixel_topk_kernel",),
+    "k3_segsum": ("segsum",),
+    "k4_fwd": ("kpconv_fwd_kernel",),
+    "k4_bwd_x": ("kpconv_bwd_x_kernel",),
+    "k4_wf": ("kpconv_wf_kernel",),
+}
 
 
 def _event():
@@ -157,11 +170,21 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
+    sums = {}
+    for label, parts in OWN_KERNELS.items():
+        mine = [e for e in kernels if any(part in e.key for part in parts)]
+        if mine:
+            sums[label] = {"ms": sum(e.self_device_time_total for e in mine) / 3e3,
+                           "launches": sum(e.count for e in mine) // 3}
+    for label, row in sums.items():
+        print(f"{label}: {row['ms']:.4f} ms in {row['launches']} launches per "
+              f"{'step' if args.train else 'forward'}")
     print(json.dumps({
         "card": smi, "mode": "train" if args.train else "inference",
         "path": "fused (K4, influence_cache='none')" if args.fused else "default (einsum, prebuilt cache)",
         "stage_ms": ms,
         "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 3e3,
+        "kernel_sums_ms": sums,
         "top_kernels_ms": [
             [e.key[:80], e.self_device_time_total / 3e3, e.count // 3] for e in kernels[:15]
         ],
