@@ -9,8 +9,8 @@ loaded as it is. The library is loaded with ``ctypes``; every pointer and
 the stream pass as ``c_void_p``. Nothing here runs on import: the wrappers
 call :func:`library` only when they are handed a CUDA tensor. A missing
 ``nvcc`` or a failed build raises. A measurement tool may ask for preprocessor
-symbols (``library(defines=("MVKP_CYCLES",))``: the forward KPConv kernel's
-cycle counters) before anything else has loaded the library.
+symbols (``library(defines=("MVKP_CYCLES",))``: the KPConv kernels' cycle
+counters) before anything else has loaded the library.
 """
 
 from __future__ import annotations
@@ -44,12 +44,16 @@ SIGNATURES = {
     "mvkp_kpconv_fwd": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # queries per block (0: planned)
     "mvkp_kpconv_fwd_tune": (_I,),
-    # rel, g, kp, W, dx, Q, K, M, Cin, Cout, extent, stream
-    "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    # queries per block of bwd_x, 16 x the queries per warp of wf (0: planned)
+    "mvkp_kpconv_bwd_tune": (_I,),
+    # rel, g, kp, W, dx, dx_is_bf16, Q, K, M, Cin, Cout, extent, stream
+    "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
     "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
-    # out[6] on the host; only in a build with MVKP_CYCLES
+    # out[6], out[7], out[4] on the host; only in a build with MVKP_CYCLES
     "mvkp_kpconv_fwd_cycles": (_P,),
+    "mvkp_kpconv_bwd_x_cycles": (_P,),
+    "mvkp_kpconv_wf_cycles": (_P,),
 }
 
 _LIB = None

@@ -20,7 +20,9 @@ influence from the forward's inputs.
 
 Three kernels (``csrc/kpconv.cu``), each with its plain version and its
 launch count: :func:`kpconv_fused_fwd`, :func:`kpconv_fused_bwd_x` (the
-cotangent of ``nx``, f32) and :func:`kpconv_wf` (``wf`` on its own; the weight
+cotangent of ``nx``: an f32 sum, written as f32 or, with
+``out_dtype=torch.bfloat16``, rounded once to bf16 by the kernel itself, which
+is what a bf16 ``nx`` takes) and :func:`kpconv_wf` (``wf`` on its own; the weight
 gradient is then ``wfᵀ @ g``, one matrix product over all B·N queries, as the
 JAX package leaves it to XLA). :class:`KPConvFused` ties them into autograd;
 ``neighb_rel`` and ``kernel_pts`` get no gradient from it (no rigid path asks
@@ -62,12 +64,15 @@ def kpconv_fused_plain(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) 
     return torch.matmul(kpconv_wf_plain(neighb_rel, nx, kernel_pts, kp_extent), weights2d)
 
 
-def kpconv_fused_bwd_x_plain(neighb_rel, g, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
-    """Plain PyTorch version of :func:`kpconv_fused_bwd_x`: (B, N, K, Cin)."""
+def kpconv_fused_bwd_x_plain(neighb_rel, g, kernel_pts, weights2d, kp_extent: float,
+                             out_dtype=None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`kpconv_fused_bwd_x`: (B, N, K, Cin) in
+    the inputs' float type, or that sum rounded once to ``out_dtype``."""
     m = kernel_pts.shape[0]
     w = _influence(neighb_rel, kernel_pts, kp_extent)
     gw = torch.matmul(g, weights2d.t()).reshape(g.shape[0], g.shape[1], m, -1)
-    return torch.einsum("bqkm,bqmc->bqkc", w, gw)
+    dx = torch.einsum("bqkm,bqmc->bqkc", w, gw)
+    return dx if out_dtype is None else dx.to(out_dtype)
 
 
 def _rows(nx: torch.Tensor):
@@ -81,8 +86,10 @@ def _rows(nx: torch.Tensor):
     return nx.contiguous(), cin
 
 
-def check_args(neighb_rel, nx, kernel_pts, weights2d=None, g=None) -> None:
+def check_args(neighb_rel, nx, kernel_pts, weights2d=None, g=None, out_dtype=None) -> None:
     """Raise on anything the CUDA kernels do not take."""
+    if out_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"kpconv_fused_bwd_x: out_dtype {out_dtype}; float32 or bfloat16")
     check_tensor("neighb_rel", neighb_rel, torch.float32, 4)
     dev = neighb_rel.device
     check_tensor("kernel_pts", kernel_pts, torch.float32, 2, device=dev)
@@ -149,25 +156,29 @@ def kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) ->
     return out
 
 
-def kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
+def kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, kp_extent: float,
+                       out_dtype=None) -> torch.Tensor:
     """The cotangent of ``nx`` for the output cotangent ``g`` (B, N, Cout):
-    (B, N, K, Cin) f32."""
+    (B, N, K, Cin), f32 unless ``out_dtype`` says bf16 (the f32 sum rounded
+    to nearest even once, bit for bit what ``.to(torch.bfloat16)`` gives)."""
     if _on_cpu(neighb_rel, g, kernel_pts, weights2d):
-        return kpconv_fused_bwd_x_plain(neighb_rel, g, kernel_pts, weights2d, kp_extent)
-    check_args(neighb_rel, None, kernel_pts, weights2d, g)
+        return kpconv_fused_bwd_x_plain(neighb_rel, g, kernel_pts, weights2d, kp_extent, out_dtype)
+    check_args(neighb_rel, None, kernel_pts, weights2d, g, out_dtype)
+    out_dtype = out_dtype or torch.float32
     from mvkpconv_tpu_torch.ops import _build
 
     lib = _build.library()
     b, n, k, _ = neighb_rel.shape
     m, cout = kernel_pts.shape[0], weights2d.shape[1]
     cin = weights2d.shape[0] // m
-    dx = torch.empty((b, n, k, cin), dtype=torch.float32, device=g.device)
+    dx = torch.empty((b, n, k, cin), dtype=out_dtype, device=g.device)
     if b * n:
         with torch.cuda.device(g.device):
             rc = lib.mvkp_kpconv_bwd_x(
                 neighb_rel.data_ptr(), g.data_ptr(), kernel_pts.data_ptr(),
-                weights2d.data_ptr(), dx.data_ptr(), b * n, k, m, cin, cout,
-                float(kp_extent), torch.cuda.current_stream(g.device).cuda_stream,
+                weights2d.data_ptr(), dx.data_ptr(), int(out_dtype == torch.bfloat16),
+                b * n, k, m, cin, cout, float(kp_extent),
+                torch.cuda.current_stream(g.device).cuda_stream,
             )
         _build.check_launch("kpconv_fused_bwd_x", rc)
         kpconv_fused_bwd_x.launches += 1
@@ -214,9 +225,8 @@ def weight_gradient(neighb_rel, nx, kernel_pts, g, kp_extent: float) -> torch.Te
 class KPConvFused(torch.autograd.Function):
     """``kpconv_fused`` with its backward: the forward saves only its
     inputs; the backward launches ``bwd_x`` and ``wf`` for the inputs whose
-    gradient is needed. The cotangent of ``nx`` is f32 from the kernel and is
-    returned in ``nx``'s dtype (a bf16 primal takes a bf16 cotangent, as in
-    JAX)."""
+    gradient is needed. ``bwd_x`` writes the cotangent of ``nx`` in ``nx``'s
+    dtype itself (a bf16 primal takes a bf16 cotangent, as in JAX)."""
 
     @staticmethod
     def forward(ctx, neighb_rel, nx, kernel_pts, weights2d, kp_extent):
@@ -235,8 +245,7 @@ class KPConvFused(torch.autograd.Function):
         g = g.contiguous()
         dnx = dw = None
         if ctx.needs_input_grad[1]:
-            dnx = kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, ctx.kp_extent)
-            dnx = dnx.to(nx.dtype)
+            dnx = kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, ctx.kp_extent, nx.dtype)
         if ctx.needs_input_grad[3]:
             dw = weight_gradient(neighb_rel, nx, kernel_pts, g, ctx.kp_extent)
         return None, dnx, None, dw, None

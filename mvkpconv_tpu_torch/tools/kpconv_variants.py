@@ -1,6 +1,6 @@
-"""Times K4's forward, or counts its cycles, at the conv sites of the bench pyramid.
+"""Times K4's kernels, or counts their cycles, at the conv sites of the bench pyramid.
 
-    python3 -m mvkpconv_tpu_torch.tools.kpconv_variants [--cycles]
+    python3 -m mvkpconv_tpu_torch.tools.kpconv_variants [--bwd] [--cycles]
 
 The forward kernel (``csrc/kpconv.cu``) takes 64, 32 or 16 queries a block;
 ``plan_fwd`` there chooses. This script forces each choice in turn through
@@ -15,14 +15,27 @@ one's (to 1e-5 of the largest output: the variants add the k-steps in
 different orders). 32 and 16 queries take 64-column tiles also where Cout is
 32.
 
+With ``--bwd`` it times the two backward kernels instead, ``bwd_x`` (the
+cotangent of the features, written in the features' type) and ``wf`` (the
+weighted sums), with ``mvkp_kpconv_bwd_tune`` forcing 64, 32 or 16 queries a
+block of ``bwd_x`` and with them 4, 2 or 1 queries a warp of ``wf``; every
+variant's result equals the planned one's bit for bit (the variants differ
+in who computes an element, not in how).
+
 With ``--cycles`` it builds the kernels with ``-DMVKP_CYCLES`` instead, which
-makes the forward add up ``clock64`` differences at its phase boundaries (lane
-0 of every warp), and prints per site, for bf16 rows and the planned variant:
-``ms`` of the instrumented kernel, its blocks, ``block_cycles`` (mean cycles
-from a block's start to its end) and, as means per warp and block over all
-chunks of channels, ``sums`` (phase 1, the per-query sums), ``sums_rows_wait``
-(of it, waiting for the staged rows), ``product_wait`` (phase 2's waits for W
-and its barriers) and ``product`` (the rest of phase 2). No profiler attaches
+makes them add up ``clock64`` differences at their phase boundaries (lane 0 of
+every warp), and prints per site, for bf16 rows and the planned variant, under
+``fwd``: ``ms`` of the instrumented kernel, its blocks, ``block_cycles`` (mean
+cycles from a block's start to its end) and, as means per warp and block over
+all chunks of channels, ``sums`` (phase 1, the per-query sums),
+``sums_rows_wait`` (of it, waiting for the staged rows), ``product_wait``
+(phase 2's waits for W and its barriers) and ``product`` (the rest of phase
+2); under ``bwd_x``, per unit of work (a tile of queries and a chunk of
+channels; a block takes several): ``stage_wait`` (phase A's waits for g, W
+and its barriers), ``asking`` (issuing the ``cp.async`` copies of tiles and
+offsets, in both phases), ``gw`` (the rest of phase A), ``dx`` (the rest of
+phase B without its stores) and ``stores``; under ``wf``: the warps that had a query and, as means per
+such warp, ``warp_cycles``, ``rows_wait`` and ``stores``. No profiler attaches
 to a kernel's inside on a sealed machine; this does.
 """
 
@@ -92,9 +105,67 @@ def sites(dev):
         yield name, pts.shape[0] * pts.shape[1], cin, cout, rel, nx32, kp, w2d, extent
 
 
+def _cycles(lib, name, n):
+    """The named kernel's cycle counts since the last read."""
+    counts = (ctypes.c_ulonglong * n)()
+    _build.check_launch(name, getattr(lib, name)(ctypes.addressof(counts)))
+    return list(counts)
+
+
+def cycles_row(lib, rel, nx, g, kp, w2d, extent):
+    """Cycles per phase of one launch of each K4 kernel (bf16 rows)."""
+    runs = {
+        "fwd": lambda: k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent),
+        "bwd_x": lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent, nx.dtype),
+        "wf": lambda: k4.kpconv_wf(rel, nx, kp, extent),
+    }
+    row = {}
+    for part, run in runs.items():
+        ms = _ms(run)
+        name, n = f"mvkp_kpconv_{part}_cycles", {"fwd": 6, "bwd_x": 7, "wf": 4}[part]
+        _cycles(lib, name, n)  # empties the counters
+        run()
+        counts = _cycles(lib, name, n)
+        if part == "wf":
+            total, rows_wait, stores, warps = counts
+            row[part] = {"ms": ms, "warps": warps, "warp_cycles": total // warps,
+                         "rows_wait": rows_wait // warps, "stores": stores // warps}
+            continue
+        # the forward counts blocks; bwd_x, whose blocks stay on their SMs, the units
+        # of work (TQ queries, one chunk of channels) they took
+        names, unit = ((("sums", "sums_rows_wait", "product_wait", "product"), "blocks") if part == "fwd"
+                       else (("stage_wait", "asking", "gw", "dx", "stores"), "units"))
+        total, n_units = counts[len(names)], counts[len(names) + 1]
+        row[part] = {"ms": ms, unit: n_units, unit[:-1] + "_cycles": total // n_units,
+                     **{key: c // (n_units * FWD_WARPS) for key, c in zip(names, counts)}}
+    return row
+
+
+def bwd_row(lib, rel, nx, g, kp, w2d, extent):
+    """ms of ``bwd_x`` and ``wf`` per forced variant, the planned one's first."""
+    runs = {
+        "bwd_x": lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent, nx.dtype),
+        "wf": lambda: k4.kpconv_wf(rel, nx, kp, extent),
+    }
+    row = {}
+    for part, run in runs.items():
+        lib.mvkp_kpconv_bwd_tune(0)
+        want = run()
+        times = {}
+        for tq in VARIANTS:
+            lib.mvkp_kpconv_bwd_tune(tq)
+            assert torch.equal(run(), want), (part, tq)
+            label = "planned" if tq == 0 else f"{tq}q" if part == "bwd_x" else f"{tq // 16}q_a_warp"
+            times[label] = _ms(run)
+        lib.mvkp_kpconv_bwd_tune(0)
+        row[part] = times
+    return row
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--cycles", action="store_true", help="count the forward's cycles per phase")
+    parser.add_argument("--cycles", action="store_true", help="count the kernels' cycles per phase")
+    parser.add_argument("--bwd", action="store_true", help="time bwd_x and wf instead of the forward")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kpconv_variants: needs a CUDA device")
@@ -105,20 +176,18 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True,
     ).stdout.strip()
-    counts = (ctypes.c_ulonglong * 6)()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
     for name, queries, cin, cout, rel, nx32, kp, w2d, extent in sites(dev):
         row = {"site": name, "queries": queries, "cin": cin, "cout": cout, "card": smi}
+        g = torch.randn(*rel.shape[:2], cout, generator=gen, device=dev)
         if args.cycles:
-            nx = nx32.to(torch.bfloat16)
-            row["ms"] = _ms(lambda: k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent))
-            for _ in range(2):  # the first read empties the counters, the second has one launch
-                k4.kpconv_fused_fwd(rel, nx, kp, w2d, extent)
-                _build.check_launch("kpconv_fwd_cycles", lib.mvkp_kpconv_fwd_cycles(ctypes.addressof(counts)))
-            sums, rows_wait, product_wait, product, block, n_blocks = list(counts)
-            per_warp = n_blocks * FWD_WARPS
-            row.update({"blocks": n_blocks, "block_cycles": block // n_blocks, "sums": sums // per_warp,
-                        "sums_rows_wait": rows_wait // per_warp, "product_wait": product_wait // per_warp,
-                        "product": product // per_warp})
+            row.update(cycles_row(lib, rel, nx32.to(torch.bfloat16), g, kp, w2d, extent))
+            print(json.dumps(row), flush=True)
+            continue
+        if args.bwd:
+            for nx in (nx32.to(torch.bfloat16), nx32):
+                row[str(nx.dtype)[6:]] = bwd_row(lib, rel, nx, g, kp, w2d, extent)
             print(json.dumps(row), flush=True)
             continue
         m = kp.shape[0]

@@ -205,3 +205,147 @@ def test_rows_pass_a_column_slice_of_the_joint_gather_as_it_is():
     assert ld == 8
     x, ld = K4._rows(gathered.transpose(1, 2)[..., 3:].transpose(1, 2)[:, ::2])
     assert ld == 8 and x.is_contiguous()  # rows at no uniform stride: copied
+
+
+# ---- the cotangent written in the primal's dtype ---------------------------
+
+
+@pytest.mark.parametrize("via", ["plain", "wrapper"])
+@pytest.mark.parametrize("cin", [8, 66])
+def test_bwd_x_out_dtype_is_the_f32_sum_rounded_once(cin, via):
+    """``out_dtype=torch.bfloat16`` gives bit for bit what casting the f32
+    result gives (round to nearest even, once): the contract the CUDA kernel's
+    bf16 store is held to on the card."""
+    rel, nx, kp, w = to_torch(inputs(cin, n=40), "float32")
+    g = torch.from_numpy(np.random.RandomState(3).randn(2, 40, 16).astype(np.float32))
+    fn = K4.kpconv_fused_bwd_x_plain if via == "plain" else K4.kpconv_fused_bwd_x
+    f32_result = fn(rel, g, kp, w, EXTENT)
+    assert f32_result.dtype == torch.float32
+    assert torch.equal(fn(rel, g, kp, w, EXTENT, out_dtype=torch.float32), f32_result)
+    got = fn(rel, g, kp, w, EXTENT, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == nx.shape
+    assert torch.equal(got, f32_result.to(torch.bfloat16))
+    assert (got[:, 2:, -3:] == 0).all()  # shadow neighbors: exactly 0 in bf16 too
+    # a float64 evaluation keeps its type unless told otherwise
+    assert K4.kpconv_fused_bwd_x_plain(rel.double(), g.double(), kp.double(), w.double(), EXTENT).dtype == torch.float64
+
+
+@pytest.mark.parametrize("cin", [8, 66])
+def test_function_backward_returns_a_bf16_cotangent_for_bf16_features(cin):
+    """``KPConvFused.backward`` hands ``nx.dtype`` to ``bwd_x`` and casts
+    nothing afterwards: the result equals the f32 cotangent cast once, and
+    still matches the JAX kernel's backward."""
+    arrays = inputs(cin, n=SHAPES[cin] // 2 if cin == 66 else 128)
+    trel, tnx, tkp, tw = to_torch(arrays, "bfloat16")
+    g_np = np.random.RandomState(4).randn(*tnx.shape[:2], tw.shape[1]).astype(np.float32)
+    g = torch.from_numpy(g_np)
+    x = tnx.clone().requires_grad_(True)
+    (dnx,) = torch.autograd.grad(K4.kpconv_fused(trel, x, tkp, tw, EXTENT), x, g)
+    assert dnx.dtype == torch.bfloat16
+    cast_after = K4.kpconv_fused_bwd_x(trel, g, tkp, tw, EXTENT).to(torch.bfloat16)
+    assert torch.equal(dnx, cast_after)
+    rel, nx, kp, w = to_jax(arrays, "bfloat16")
+    _, vjp = jax.vjp(lambda a: jax_kpconv_fused(rel, a, kp, w, EXTENT, True), nx)
+    (want,) = vjp(jnp.asarray(g_np))
+    assert want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(f32(dnx), f32(want), **BF16_GRAD_TOL)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float16, torch.float64, torch.int32])
+def test_check_args_rejects_an_unsupported_out_dtype(out_dtype):
+    rel, nx, kp, w = to_torch(inputs(8, n=8), "float32")
+    g = torch.zeros(2, 8, 16)
+    K4.check_args(rel, None, kp, w, g, torch.float32)
+    K4.check_args(rel, None, kp, w, g, torch.bfloat16)
+    K4.check_args(rel, None, kp, w, g, None)
+    with pytest.raises(TypeError, match="out_dtype"):
+        K4.check_args(rel, None, kp, w, g, out_dtype)
+
+
+# ---- the split arithmetic of the tensor-core products ----------------------
+# The CUDA kernels multiply on the tensor cores in TF32, which reads the upper
+# 19 bits of an f32 register. Each f32 operand is split v = hi + lo (hi: v
+# rounded to those bits by an integer add and a mask; lo: v - hi, exact in
+# f32, rounded the same way when it is read), and hi*hi + hi*lo + lo*hi is
+# accumulated in f32. This mirror of that arithmetic shows, where there is no
+# card, that both of bwd_x's products stay within 2^-18 * sum|terms| of
+# float64: the allowance the card-side check holds the kernels to.
+
+KPCONV_REL = 2.0**-18
+
+
+def split_tf32(v):
+    """(hi, lo) as the tensor cores read them: ``csrc/kpconv.cu`` ``split_tf32``
+    with the ignored low 13 bits of both cleared."""
+    bits = v.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    lo = (((v - hi).contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return hi, lo
+
+
+def split_matmul(a, b):
+    """``a @ b`` from TF32 operands: three products, cross terms summed apart."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return torch.matmul(a_hi, b_hi) + (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo))
+
+
+def test_split_tf32_keeps_22_bits_and_is_exact_for_bf16():
+    v = torch.from_numpy(np.random.RandomState(5).randn(4096).astype(np.float32)) * 37.0
+    hi, lo = split_tf32(v)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all() and ((lo.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((v - (hi + lo)).abs() <= 2.0**-22 * v.abs()).all()
+    assert ((v - hi).abs() <= 2.0**-11 * v.abs()).all()
+    b = v.to(torch.bfloat16).float()  # a bf16 value is its own hi: one product suffices
+    hi, lo = split_tf32(b)
+    assert torch.equal(hi, b) and (lo == 0).all()
+    zero_hi, zero_lo = split_tf32(torch.zeros(3))
+    assert (zero_hi == 0).all() and (zero_lo == 0).all()  # an influence of 0 multiplies as 0
+
+
+@pytest.mark.parametrize("one_product", [False, True])
+@pytest.mark.parametrize("cin", [8, 66])
+def test_split_products_of_bwd_x_stay_within_the_allowance_of_float64(cin, one_product):
+    """``gw = g Wᵀ`` and ``dx = w gw`` done with split operands, on seeded
+    inputs with shadow rows and padded queries: within 2⁻¹⁸·Σ|terms| of
+    float64, shadow neighbors exactly 0; a single TF32 product (no split) is
+    shown to break that allowance, so the test can fail."""
+    rel, nx, kp, w = to_torch(inputs(cin, n=40), "float32")
+    m = kp.shape[0]
+    g = torch.from_numpy(np.random.RandomState(6).randn(2, 40, 16).astype(np.float32))
+    infl = K4._influence(rel, kp, EXTENT)
+    if one_product:
+        mm = lambda a, b: torch.matmul(split_tf32(a)[0], split_tf32(b)[0])  # noqa: E731
+    else:
+        mm = split_matmul
+    gw = mm(g, w.t())
+    gw_ref = torch.matmul(g.double(), w.double().t())
+    gw_allow = KPCONV_REL * torch.matmul(g.abs(), w.abs().t())
+    dx = mm(infl, gw.reshape(2, 40, m, cin))
+    dx_ref = torch.matmul(infl.double(), gw_ref.reshape(2, 40, m, cin))
+    dx_allow = KPCONV_REL * torch.matmul(infl, torch.matmul(g.abs(), w.abs().t()).reshape(2, 40, m, cin))
+    gw_over = float(((gw - gw_ref).abs() / (gw_allow + 1e-30)).max())
+    dx_over = float(((dx - dx_ref).abs() / (dx_allow + 1e-30)).max())
+    assert (dx[:, 2:, -3:] == 0).all()  # shadow neighbors
+    assert torch.isfinite(dx[:, :2]).all() and (infl[:, :2, :, 0] == 1).all()  # padded queries
+    if one_product:
+        assert gw_over > 1.0 and dx_over > 1.0, (gw_over, dx_over)
+    else:
+        assert gw_over <= 1.0 and dx_over <= 1.0, (gw_over, dx_over)
+        # and against the plain version, as the card-side check compares them
+        want = K4.kpconv_fused_bwd_x_plain(rel, g, kp, w, EXTENT)
+        assert float(((dx - want).abs() / (dx_allow + 1e-30)).max()) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_product_of_wf_stays_within_the_allowance_of_float64(dtype):
+    """``wf = wᵀ x`` as the kernel multiplies it: the influence split, a bf16
+    row as it is (one operand exact), an f32 row split too."""
+    rel, nx, kp, _ = to_torch(inputs(8, n=40), dtype)
+    infl = K4._influence(rel, kp, EXTENT)
+    wf = split_matmul(infl.transpose(2, 3), nx.float())
+    ref = torch.matmul(infl.double().transpose(2, 3), nx.double())
+    allow = KPCONV_REL * torch.matmul(infl.transpose(2, 3), nx.float().abs()) + 1e-30
+    assert float(((wf - ref).abs() / allow).max()) <= 1.0
+    want = K4.kpconv_wf_plain(rel, nx, kp, EXTENT).reshape(wf.shape)
+    assert float(((wf - want).abs() / allow).max()) <= 1.0
