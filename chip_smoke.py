@@ -19,7 +19,12 @@ Phases, each printed as one JSON line:
      rounded d² = r² of a query in another group, a padded tail, Ns = 1000
      and Ns < k;
   4. k2_*: the pixel top-k kernel against its plain version at bench shapes
-     (B=4, N=16384, V=5, 120×160, window 7, k=3), bf16 and f32 candidates;
+     (B=4, N=16384, V=5, 120×160, window 7, k=3), bf16 and f32 candidates,
+     timed, with the replaced kernel's time (``earlier_ms``); k2_adv_*,
+     untimed, on inputs made to break its tie rule and its lane groups:
+     exact d² ties inside a window and across views (coordinates on a
+     quarter grid, every view a copy of the first), windows at the four
+     image borders, k = 1, 3 and 32: indices equal, or d² tied within 2⁻²⁰;
   5. parity: the whole slice on the card (kernels) against the CPU (plain
      versions) at a small ARCHITECTURE_DEEPER configuration with the same
      weights, in f32 with TF32 off: max |Δ logit| ≤ 1e-4 · max |logit| on
@@ -31,10 +36,18 @@ Phases, each printed as one JSON line:
      launch per forward, ms per forward and points/s;
   7. k3_*: the gather-VJP segment sum against its plain version at the
      bench configuration's level-0 gather sites (the pyramid's voxel-sorted
-     indices, seeded normal rows, f32 and bf16): each element within
-     2⁻¹⁸ · Σ|rows into its target| (the atomics add in an order that
-     varies from run to run), the shadow row on its own; kernel and plain
-     times;
+     indices, seeded normal rows) and at the fused path's widths there
+     (3 + Cin: 35 and 69), each with f32 rows, bf16 rows, and f32 rows with
+     ``round_bf16`` as the default path (``banded_bf16``) hands them, held
+     against ``segsum_plain(rows, round_bf16=True)``: each element within
+     2⁻¹⁸ · Σ|rows into its target| (the kernel adds in another order than
+     ``index_add_``), the shadow row on its own, and the same bits again on
+     the same plan and on a new one; kernel, plan, plain and
+     ``index_add_`` times, the replaced kernel's time (``earlier_ms``) and,
+     for the rounded rows, the cast the path ran before (``earlier_cast_ms``);
+     k3_adv_*, untimed: every row on one target, every row on the shadow
+     row, widths 1, 5, 35, 69 and 300, rows that start off a 16-byte
+     boundary, K = 1;
   8. train_parity: 3 train steps on the card (kernels, gather VJP
      'banded') against the CPU (plain versions) from the same weights,
      f32, TF32 off, a batch without padded rows: each step's loss within
@@ -46,7 +59,9 @@ Phases, each printed as one JSON line:
      VJP 'banded_bf16'): a warm-up step, then 5 timed steps; loss finite,
      parameters outside ``net_2d`` changed and ``net_2d`` unchanged bit for
      bit, one K3 launch per trunk gather whose features need a gradient
-     (counted from the plan), ms per step, points/s and peak memory;
+     (counted from the plan), each handed f32 rows with ``round_bf16`` (no
+     cast pass) and its neighbor tensor's plans, at most one plan a
+     neighbor tensor, ms per step, points/s and peak memory;
  10. k4_*: the fused KPConv kernels (forward, cotangent of the gathered
      features, weighted sums and the weight gradient built on them) against
      their plain versions at four conv sites of the bench pyramid (level-0
@@ -115,6 +130,29 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20):
+    """Device ms per call of ``fn``: every kernel it launches, summed, from
+    ``torch.profiler`` over ``reps`` calls after a warm-up. Unlike
+    ``cuda_ms`` it does not read the wrapper's host time where that is longer
+    than the kernels (0.05–0.08 ms a call). A profile that recorded no device
+    time at all (it happens now and then) is taken again, up to three times."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / reps
+    raise RuntimeError("device_ms: the profiler recorded no device time")
+
+
 def bound(nbytes, flops):
     """The least ms the card could take: each input read once and each
     output written once at the memory rate, or the operations at the f32
@@ -159,7 +197,7 @@ def pairs_within(query, support, r2):
     return total
 
 
-# Times of the kernels that the present K1 and K4 kernels replaced, ms, from
+# Times of the kernels that the present K1–K4 kernels replaced, ms, from
 # this script on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md's kernel tables);
 # bwd_x's were taken with an f32 result.
 EARLIER_MS = {
@@ -177,6 +215,8 @@ EARLIER_MS = {
     "k4_L0_resnetb_float32_wf": 0.297, "k4_L0_resnetb_bfloat16_wf": 0.373,
     "k4_L0_strided_float32_wf": 0.084, "k4_L0_strided_bfloat16_wf": 0.102,
     "k4_L4_resnetb_float32_wf": 0.074, "k4_L4_resnetb_bfloat16_wf": 0.071,
+    "k2_bfloat16": 0.0773,
+    "k3_L0_simple_bfloat16": 0.269, "k3_L0_resnetb_float32": 0.151, "k3_L0_resnetb_bfloat16": 0.124,
 }
 EARLIER_FROM = "the kernel before its redesign (PERF.md)"
 
@@ -313,7 +353,10 @@ def check_k1_adversarial(p0, radius, k, results):
     check_k1("k1_adv_ns_below_k_k1", some, p0[:, 5:6].contiguous(), 40 * radius, 1, results, timed=False)
 
 
-def check_k2(name, points, image_xyz, iu0, iv0, window, k, results):
+def check_k2(name, points, image_xyz, iu0, iv0, window, k, results, timed=True):
+    """K2 against its plain version: equal indices, or rows that differ only
+    where the selected d² tie within 2⁻²⁰ relative; with ``timed`` also the
+    kernel's and the plain version's times and the bound."""
     import torch
     from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
 
@@ -333,61 +376,156 @@ def check_k2(name, points, image_xyz, iu0, iv0, window, k, results):
     assert got.shape == want.shape and got.dtype == torch.int32, name
     assert bool(((got >= 0) & (got < flat.shape[1])).all()), name
     assert gap <= TIE_REL, f"{name}: K2 disagrees with its plain version (d² gap {gap})"
-    ms = cuda_ms(lambda: k2.pixel_topk(points, image_xyz, iu0, iv0, window, k), reps=20)
-    plain_ms = cuda_ms(lambda: k2.pixel_topk_plain(points, image_xyz, iu0, iv0, window, k), reps=5, warmup=1)
     row = {
         "phase": name, "b": b, "n": points.shape[1], "views": image_xyz.shape[1],
         "hw": list(image_xyz.shape[2:4]), "window": window, "k": k,
         "dtype": str(image_xyz.dtype).replace("torch.", ""),
         "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs,
-        "ms": ms, "plain_ms": plain_ms,
+    }
+    if not timed:
+        emit(row)
+        results.append(row)
+        return
+    row.update({
+        # device times (the wrapper's host time exceeds the kernel's)
+        "ms": device_ms(lambda: k2.pixel_topk(points, image_xyz, iu0, iv0, window, k)),
+        "plain_ms": device_ms(lambda: k2.pixel_topk_plain(points, image_xyz, iu0, iv0, window, k), reps=5),
+        "call_ms": cuda_ms(lambda: k2.pixel_topk(points, image_xyz, iu0, iv0, window, k), reps=20),
         # a d² and a comparison for every pixel of every view's window
         **bound(nbytes(points, image_xyz, iu0, iv0, got),
                 9.0 * b * points.shape[1] * image_xyz.shape[1] * window * window),
-    }
+    })
+    if name in EARLIER_MS:
+        row.update({"earlier_ms": EARLIER_MS[name], "earlier_from": EARLIER_FROM})
     emit(row)
     results.append(row)
 
 
-def check_k3(name, index, ns, c, gen, results):
-    """K3 against its plain version on one gather site, f32 and bf16 rows.
+def check_k2_adversarial(dev, results):
+    """K2 on inputs made to break its tie rule and its lane groups, untimed:
+    pixel and point coordinates on a quarter grid (so many candidates of one
+    point share a d² exactly), every view a copy of the first (ties across
+    views), windows at the four image borders and corners, k = 1, 3 and 32,
+    a window of 7 and of 3, bf16 and f32 candidates. The plain version
+    breaks a tie by the lower flat index, so the indices must be equal."""
+    import torch
 
-    The atomics add in an order that varies from run to run, and two orders
-    of n f32 terms differ by at most 2(n − 1)·2⁻²⁴·Σ|terms|. So each output
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    b, v, h, w, n = 2, 5, 120, 160, 4096
+    img = torch.randint(0, 4, (b, 1, h, w, 3), generator=gen).float().div(4).expand(b, v, h, w, 3)
+    pts = torch.randint(0, 4, (b, n, 3), generator=gen).float().div(4)
+    for window in (7, 3):
+        iu0 = torch.randint(0, w - window + 1, (b, v, n), generator=gen, dtype=torch.int32)
+        iv0 = torch.randint(0, h - window + 1, (b, v, n), generator=gen, dtype=torch.int32)
+        for j, (u, vv) in enumerate([(0, 0), (w - window, 0), (0, h - window), (w - window, h - window)]):
+            iu0[:, :, j::64] = u  # corners, then every border
+            iv0[:, :, j::64] = vv
+        iu0[:, :, 4::64], iv0[:, :, 5::64] = 0, h - window
+        args = [t.to(dev).contiguous() for t in (pts, img, iu0, iv0)]
+        for dt in (torch.bfloat16, torch.float32):
+            for k in (1, 3, 32):
+                check_k2(f"k2_adv_w{window}_k{k}_{str(dt)[6:]}", args[0], args[1].to(dt).contiguous(),
+                         args[2], args[3], window, k, results, timed=False)
+        assert all(r["rows_differ"] == 0 for r in results[-6:]), "K2 broke an exact tie differently"
+
+
+def check_k3(name, index, ns, c, gen, results, timed=True, rows32=None):
+    """K3 against its plain version on one gather site: f32 rows, bf16 rows,
+    and f32 rows with ``round_bf16`` as the default path hands them (held
+    against ``segsum_plain(rows, round_bf16=True)``, the rounding done the
+    way ``Tensor.to(torch.bfloat16)`` does it).
+
+    The kernel sums a target's rows in row order, in slots and pieces, and
+    the plain version in another order; two orders of n f32 terms differ by
+    at most 2(n − 1)·2⁻²⁴·Σ|terms|. So each output
     element is held to 2⁻¹⁸·Σ|rows into its target| (the plain version on
     |rows|): a bound for targets of up to 33 rows, about the neighbor lists'
     length, and far above the usual error of the shadow row's thousands. A
-    kernel that rounded rows to bf16 (2⁻⁹) or dropped one would exceed it
-    at every site. The shadow row, which the kernel sums per block, is
-    reported on its own."""
+    kernel that rounded rows it should not round to bf16 (2⁻⁹), or did not
+    round rows it should, or dropped one, would exceed it at every site. The
+    shadow row, which the kernel sums in pieces of ``LONG`` rows, is
+    reported on its own. Nothing in the plan or the sum depends on the order
+    in which atomics land, so a second call on the same plan and a call that
+    builds its own plan give the same bits. With ``timed`` also device times:
+    the call given the index's plan (``ms``: every gather VJP on a pyramid's
+    neighbor tensor after the first), the plan's kernels alone, the call
+    that builds its plan, the plain version, ``index_add_`` and, for the
+    rounded rows, the cast the path ran before; and the replaced kernel's."""
     import torch
     from mvkpconv_tpu_torch.ops.kernels import segsum as k3
 
-    rows32 = torch.randn(index.numel(), c, generator=gen, device=index.device)
-    for rows in (rows32, rows32.to(torch.bfloat16)):
-        got = k3.segsum(rows, index, ns)
-        want = k3.segsum_plain(rows, index, ns)
-        allowance = SEGSUM_REL * k3.segsum_plain(rows.abs(), index, ns) + 1e-30
+    if rows32 is None:
+        rows32 = torch.randn(index.numel(), c, generator=gen, device=index.device)
+    flat = (index.long() + torch.arange(index.shape[0], device=index.device)[:, None, None] * ns).reshape(-1)
+    plans = k3.IndexPlans()  # the index's plan, built by the first call
+    for rows, rnd in ((rows32, False), (rows32.to(torch.bfloat16), False), (rows32, True)):
+        dt = str(rows.dtype)[6:] + ("_round" if rnd else "")
+        got = k3.segsum(rows, index, ns, rnd, plans)
+        assert torch.equal(got, k3.segsum(rows, index, ns, rnd, plans)), f"{name} {dt}: K3 not the same twice"
+        assert torch.equal(got, k3.segsum(rows, index, ns, rnd)), f"{name} {dt}: K3 differs with a new plan"
+        want = k3.segsum_plain(rows, index, ns, rnd)
+        allowance = SEGSUM_REL * k3.segsum_plain(rows.abs(), index, ns, rnd) + 1e-30
         over = (got - want).abs() / allowance
         targets, shadow = float(over[:, :-1].max()), float(over[:, -1].max())
         err = float((got - want).abs().max())
         assert got.shape == want.shape and got.dtype == torch.float32, name
-        assert targets <= 1.0, f"{name}: K3 disagrees with its plain version ({targets} × the allowance)"
-        assert shadow <= 1.0, f"{name}: K3's shadow row disagrees with its plain version ({shadow} × the allowance)"
+        assert bool(torch.isfinite(got).all()), f"{name} {dt}: K3 wrote a non-finite value"
+        assert targets <= 1.0, f"{name} {dt}: K3 disagrees with its plain version ({targets} × the allowance)"
+        assert shadow <= 1.0, f"{name} {dt}: K3's shadow row disagrees with its plain version ({shadow} × the allowance)"
         row = {
-            "phase": f"{name}_{str(rows.dtype)[6:]}", "b": index.shape[0], "nq": index.shape[1],
-            "k": index.shape[2], "ns": ns, "c": c, "dtype": str(rows.dtype)[6:],
+            "phase": f"{name}_{dt}", "b": index.shape[0], "nq": index.shape[1],
+            "k": index.shape[2], "ns": ns, "c": c, "dtype": str(rows.dtype)[6:], "round_bf16": rnd,
             "shadow_rows": int((index == ns - 1).sum()), "max_abs_err": err,
             "err_over_allowance": targets, "shadow_err_over_allowance": shadow,
-            "ms": cuda_ms(lambda: k3.segsum(rows, index, ns), reps=20),
-            "plain_ms": cuda_ms(lambda: k3.segsum_plain(rows, index, ns), reps=20),
-            # one add per row element; the plain version is the one PyTorch
-            # call for this function (index_add_)
-            **bound(nbytes(rows, index, got), float(rows.numel())),
         }
-        row["library_ms"] = row["plain_ms"]
-        emit(row)
         results.append(row)
+        if not timed:
+            emit(row)
+            continue
+        out = torch.zeros(index.shape[0] * ns, c, device=index.device)
+        src = rows.float()  # index_add_ takes its source in the output's type
+        row.update({
+            "ms": device_ms(lambda: k3.segsum(rows, index, ns, rnd, plans)),
+            "plan_ms": device_ms(lambda: k3.segsum_plan(index, ns)),
+            "first_call_ms": device_ms(lambda: k3.segsum(rows, index, ns, rnd)),
+            "call_ms": cuda_ms(lambda: k3.segsum(rows, index, ns, rnd, plans), reps=20),
+            "plain_ms": device_ms(lambda: k3.segsum_plain(rows, index, ns, rnd)),
+            # the one PyTorch call for the sum, on the rows' values in f32 (it
+            # cannot round: on the rounded rows' instance it sums them as they are)
+            "library_ms": device_ms(lambda: out.index_add_(0, flat, src)),
+            # one add per row element, and the rounding
+            **bound(nbytes(rows, index, got), (2.0 if rnd else 1.0) * rows.numel()),
+        })
+        earlier = EARLIER_MS.get(f"{name}_{'bfloat16' if rnd else dt}")
+        if earlier is not None:
+            row.update({"earlier_ms": earlier, "earlier_from": EARLIER_FROM})
+        if rnd:
+            # before, the path cast the cotangent to bf16 and K3 read that
+            row["earlier_cast_ms"] = device_ms(lambda: rows.to(torch.bfloat16))
+        emit(row)
+
+
+def check_k3_adversarial(p_index, ns, dev, gen, results):
+    """K3 off the bench's data, untimed, held like ``check_k3``: every row on
+    one target (far more than ``LONG`` rows: pieces and their partials),
+    every row on the shadow row, widths 1, 5, 35, 69 and 300 (output rows off
+    a 16-byte boundary, scalar ends), rows that start 4 and 8 bytes past a
+    16-byte boundary (a view into a larger tensor), K = 1."""
+    import torch
+
+    b, nq, k = p_index.shape
+    one = torch.full_like(p_index, 7)
+    check_k3("k3_adv_one_target", one, ns, 32, gen, results, timed=False)
+    check_k3("k3_adv_all_shadow", torch.full_like(p_index, ns - 1), ns, 35, gen, results, timed=False)
+    for c in (1, 5, 35, 69, 300):
+        sub = p_index[:, :min(nq, max(64, 2**22 // (k * c)))].contiguous()
+        check_k3(f"k3_adv_c{c}", sub, ns, c, gen, results, timed=False)
+    for skip in (1, 2):  # 4 and 8 bytes past the boundary in f32
+        big = torch.randn(p_index.numel() * 32 + skip, generator=gen, device=dev)
+        rows = big[skip:].view(-1, 32)
+        check_k3(f"k3_adv_offset{4 * skip}", p_index, ns, 32, gen, results, timed=False, rows32=rows)
+    check_k3("k3_adv_k1", p_index[..., :1].contiguous(), ns, 64, gen, results, timed=False)
 
 
 def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, results, timed=True):
@@ -783,6 +921,7 @@ def kernel_counters():
     from mvkpconv_tpu_torch.ops.kernels import segsum as k3
 
     return {"radius_topk": k1.radius_topk, "pixel_topk": k2.pixel_topk, "segsum": k3.segsum,
+            "segsum_plan": k3.segsum_plan,
             "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
             "kpconv_wf": k4.kpconv_wf}
 
@@ -864,9 +1003,15 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / steps
     launches = read_launches()
-    # one more step, untimed, with the gather VJP's row widths written down
-    segsum, seen = gather.segsum, []
-    gather.segsum = lambda rows, index, ns: seen.append(rows.shape[1]) or segsum(rows, index, ns)
+    # one more step, untimed, with the gather VJP's rows written down
+    segsum, seen, handed = gather.segsum, [], set()
+
+    def spy(rows, index, ns, round_bf16=False, plans=None):
+        seen.append(rows.shape[1])
+        handed.add((str(rows.dtype)[6:], round_bf16, plans is not None))
+        return segsum(rows, index, ns, round_bf16, plans)
+
+    gather.segsum = spy
     try:
         train_steps(trainer, batch, 1)
     finally:
@@ -881,7 +1026,14 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     assert all(torch.equal(v, frozen[k]) for k, v in trainer.model.net_2d.state_dict().items()), "net_2d moved"
     assert changed == len(start), f"{len(start) - changed} trainable parameters did not move"
     assert launches["segsum"] == n_gathers * steps, (launches, n_gathers)
+    # a plan a neighbor tensor of the step (the pyramid's 3 L - 2), built on
+    # its first gather VJP: fewer than the gather VJPs
+    assert 0 < launches["segsum_plan"] <= (3 * cfg.num_layers - 2) * steps, launches
+    assert launches["segsum_plan"] < launches["segsum"], launches
     assert sorted(seen) == gather_vjp_widths(trainer.model, fused), (sorted(seen), fused)
+    # banded_bf16: every cotangent reaches K3 in f32 with the rounding asked
+    # for, so no cast runs before it, and with its neighbor tensor's plans
+    assert handed == {("float32", True, True)}, handed
     assert launches["radius_topk"] == 13 * steps and launches["pixel_topk"] == steps, launches
     assert launches["radius_topk_device"] == 26 * steps, launches
     assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
@@ -893,6 +1045,7 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
         "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
         "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": launches,
         "trunk_gathers_with_grad": n_gathers, "gather_vjp_row_widths": sorted(seen),
+        "gather_vjp_rows": sorted(f"{d}{' round_bf16' if r else ''}" for d, r, _ in handed),
         "conv_blocks": n_conv, "conv_blocks_with_input_grad": n_bwd_x,
         "params_moved": changed,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
@@ -980,6 +1133,8 @@ def main() -> int:
     iv0 = window_anchors(v, cfg.image_height, w).contiguous()
     for dt in (torch.bfloat16, torch.float32):
         check_k2(f"k2_{str(dt)[6:]}", p0, image_xyz.to(dt).contiguous(), iu0, iv0, w, cfg.pixel_knn, k2_rows)
+    k2_adv_rows = []
+    check_k2_adversarial(dev, k2_adv_rows)
 
     # ---- card against CPU on the same weights, f32 ----
     small = KPConfig(
@@ -1007,6 +1162,11 @@ def main() -> int:
     check_k3("k3_L0_strided", pyr.pools[0], cfg.num_points[0] + 1, enc[2][2] // 4, gen, k3_rows)
     check_k3("k3_L0_strided_maxpool", pyr.pools[0], cfg.num_points[0] + 1, enc[2][1], gen, k3_rows)
     check_k3("k3_L0_upsample", pyr.upsamples[0], n1 + 1, up_c, gen, k3_rows)
+    # the fused path's conv gathers: positions ⊕ features, 3 + Cin wide
+    check_k3("k3_L0_resnetb_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + enc[1][2] // 4, gen, k3_rows)
+    check_k3("k3_L0_simple_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + enc[0][1], gen, k3_rows)
+    k3_adv_rows = []
+    check_k3_adversarial(pyr.neighbors[0], cfg.num_points[0] + 1, dev, gen, k3_adv_rows)
     top = len(pyr.points) - 1
     for name, q_l, s_l, inds, entry, cin, cout in (
         ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
@@ -1049,7 +1209,9 @@ def main() -> int:
 
     l0 = k1_rows[0]
     bf16 = k2_rows[0]
-    k3_main = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_bfloat16")
+    # K3 as the default path hands it its rows: f32, rounded by the kernel
+    k3_main = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_float32_round")
+    k3_bf16 = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_bfloat16")
     k4_main = next(r for r in k4_rows if r["phase"] == "k4_L0_resnetb_bfloat16")
 
     def k4_entry(name, part, count):
@@ -1072,15 +1234,24 @@ def main() -> int:
         {"name": "pixel_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pixel_select.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/pixel_select.py:97",
          "launches": launches["pixel_topk"],
-         "max_abs_err": max(r["max_d2_gap"] for r in k2_rows),
+         "max_abs_err": max(r["max_d2_gap"] for r in k2_rows + k2_adv_rows),
+         "timing": "device time, torch.profiler",
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
-         "bound_by": bf16["bound_by"], "library_ms": None},
+         "bound_by": bf16["bound_by"], "library_ms": None,
+         "earlier_ms": bf16.get("earlier_ms"), "earlier_from": EARLIER_FROM},
         {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
-         "launches": train_launches["segsum"],
-         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+         "launches": train_launches["segsum"], "plan_launches": train_launches["segsum_plan"],
+         "max_abs_err": max(r["max_abs_err"] for r in k3_rows + k3_adv_rows),
+         "timing": "device time, torch.profiler; ms with the index's plan cached",
+         "plan_ms": k3_main["plan_ms"], "first_call_ms": k3_main["first_call_ms"],
          "ms": k3_main["ms"], "plain_ms": k3_main["plain_ms"], "bound_ms": k3_main["bound_ms"],
-         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"]},
+         "bound_by": k3_main["bound_by"], "library_ms": k3_main["library_ms"],
+         "library_of": "index_add_ of the same f32 rows (one call; it cannot round them)",
+         "instance": "level-0 resnetb site, f32 rows with round_bf16, as the default path hands them",
+         "earlier_ms": k3_main["earlier_ms"], "earlier_cast_ms": k3_main["earlier_cast_ms"],
+         "earlier_from": EARLIER_FROM + ": the cast to bf16, then the kernel on bf16 rows",
+         "bf16_rows": {x: k3_bf16[x] for x in ("ms", "bound_ms", "earlier_ms", "library_ms")}},
         {**k4_entry("kpconv_fused", "fwd", fused_launches["kpconv_fused_fwd"]),
          "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"]},
         k4_entry("kpconv_fused_bwd_x", "bwd_x", fused_train_launches["kpconv_fused_bwd_x"]),

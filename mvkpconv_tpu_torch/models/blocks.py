@@ -46,8 +46,9 @@ def max_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def closest_pool(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Features of the closest (first) neighbor."""
-    return gather_neighbors(x, idx[..., :1])[..., 0, :]
+    """Features of the closest (first) neighbor. A one-neighbor index (the
+    pyramid's upsamples) is gathered as it is, so its K3 plans serve."""
+    return gather_neighbors(x, idx if idx.shape[-1] == 1 else idx[..., :1])[..., 0, :]
 
 
 def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -10,7 +10,7 @@ the stream pass as ``c_void_p``. Nothing here runs on import: the wrappers
 call :func:`library` only when they are handed a CUDA tensor. A missing
 ``nvcc`` or a failed build raises. A measurement tool may ask for preprocessor
 symbols (``library(defines=("MVKP_CYCLES",))``: the KPConv kernels' cycle
-counters) before anything else has loaded the library.
+counters and the segment sum's counts) before anything else has loaded the library.
 """
 
 from __future__ import annotations
@@ -38,8 +38,12 @@ SIGNATURES = {
     # points, image_xyz, image_is_bf16, iu0, iv0, out,
     # B, N, V, H, W, window, k, stream
     "mvkp_pixel_topk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    # rows, rows_is_bf16, index, out, B, rows_per_b, Ns, C, stream
-    "mvkp_segsum": (_P, _I, _P, _P, _I, _I, _I, _I, _P),
+    # B, rows_per_b, Ns, C, out[3] (plan ints, plan scratch ints, sum scratch words)
+    "mvkp_segsum_sizes": (_I, _I, _I, _I, _P),
+    # index, plan, scratch, B, rows_per_b, Ns, stream
+    "mvkp_segsum_plan": (_P, _P, _P, _I, _I, _I, _P),
+    # rows, rows_is_bf16, round_bf16, plan, out, scratch, B, rows_per_b, Ns, C, stream
+    "mvkp_segsum_sum": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
     # rel, x, x_is_bf16, ldx, kp, W, out, Q, K, M, Cin, Cout, extent, stream
     "mvkp_kpconv_fwd": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     # queries per block (0: planned)
@@ -50,10 +54,11 @@ SIGNATURES = {
     "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
     "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
-    # out[6], out[7], out[4] on the host; only in a build with MVKP_CYCLES
+    # out[6], out[7], out[4], out[6] on the host; only in a build with MVKP_CYCLES
     "mvkp_kpconv_fwd_cycles": (_P,),
     "mvkp_kpconv_bwd_x_cycles": (_P,),
     "mvkp_kpconv_wf_cycles": (_P,),
+    "mvkp_segsum_counts": (_P,),
 }
 
 _LIB = None

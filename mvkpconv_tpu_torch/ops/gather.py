@@ -11,7 +11,14 @@ autograd context, so nothing is read back at backward time):
   * ``banded``: kernel K3 (``ops/kernels/segsum.py``) on the rows, f32 (a
     bf16 cotangent stays bf16, as in JAX), accumulated in f32;
   * ``banded_bf16``: the rows rounded to bf16 (RNE, JAX's
-    ``ct.astype(jnp.bfloat16)``), then K3 with f32 accumulation.
+    ``ct.astype(jnp.bfloat16)``), then K3 with f32 accumulation; an f32
+    cotangent goes to K3 as it is, with ``round_bf16``, which rounds it in
+    registers (no cast pass).
+
+On CUDA K3 needs a plan of the index. An index tensor that carries
+``segsum_plans`` (``ops/kernels/segsum.py:attach_plans``; every neighbor
+tensor of the pyramid) builds it once for all the VJPs on that tensor; any
+other index builds one for its call.
 
 Every mode casts the result to the features' dtype. ``group_points_joint``
 is the counterpart of ``group_points_packed``: one gather of pixel xyz ⊕
@@ -77,6 +84,8 @@ class _GroupPoints(torch.autograd.Function):
         ctx.feat_shape = features.shape
         ctx.feat_dtype = features.dtype
         ctx.save_for_backward(index)
+        # the plans the index's maker attached (segsum.attach_plans), if any
+        ctx.plans = getattr(index, "segsum_plans", None)
         return _gather_rows(features, index)
 
     @staticmethod
@@ -88,11 +97,11 @@ class _GroupPoints(torch.autograd.Function):
             d = torch.zeros((b * ns, c), dtype=ct.dtype, device=ct.device)
             d = d.index_add_(0, _flat_index(index, ns), rows).reshape(b, ns, c)
         else:
-            if ctx.mode == "banded_bf16" or rows.dtype == torch.bfloat16:
-                rows = rows.to(torch.bfloat16)
-            else:
-                rows = rows.float()
-            d = segsum(rows.contiguous(), index.to(torch.int32).contiguous(), ns)
+            # banded_bf16 hands f32 rows over as they are: K3 rounds them
+            round_bf16 = ctx.mode == "banded_bf16" and rows.dtype == torch.float32
+            if rows.dtype != torch.bfloat16 and not round_bf16:
+                rows = rows.to(torch.bfloat16 if ctx.mode == "banded_bf16" else torch.float32)
+            d = segsum(rows.contiguous(), index.to(torch.int32).contiguous(), ns, round_bf16, ctx.plans)
         return d.to(ctx.feat_dtype), None, None
 
 

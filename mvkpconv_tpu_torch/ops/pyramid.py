@@ -11,6 +11,9 @@ All index tensors use the shadow convention (index == N_support ⇒ no
 neighbor ⇒ zero feature row). Every selection — conv, pool and the k=1
 upsample — goes through kernel K1, which is exact and has no support-count
 limit, so the JAX package's CPU / oversize fallbacks have no counterpart.
+Each index tensor carries the plans of its gather VJP's segment sum (K3,
+``ops/kernels/segsum.py:attach_plans``), built on the first backward that
+needs them.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from mvkpconv_tpu_torch.ops.kernels.segsum import attach_plans
 from mvkpconv_tpu_torch.ops.neighbors import radius_neighbors
 from mvkpconv_tpu_torch.ops.sampling import grid_subsample
 
@@ -166,7 +170,7 @@ def build_pyramid(
     return Pyramid(
         points=tuple(pts),
         masks=tuple(msks),
-        neighbors=tuple(neighbors),
-        pools=tuple(pools),
-        upsamples=tuple(upsamples),
+        neighbors=tuple(map(attach_plans, neighbors)),
+        pools=tuple(map(attach_plans, pools)),
+        upsamples=tuple(map(attach_plans, upsamples)),
     )

@@ -22,7 +22,13 @@ launches per forward or step) and then one JSON line:
     step, from ``torch.profiler`` over 3 runs; ``kernel_sums_ms``: the
     hand-written kernels' device time per forward or step, summed by kernel
     (K1 = the box pre-pass and the search, K4's forward, ``bwd_x`` and ``wf``,
-    K2, K3), with their launches.
+    K2, K3), with their launches;
+  * ``gather_vjp_ms`` (``--train``): every device kernel launched inside the
+    gather VJP (``_GroupPointsBackward``), per step, summed by kind: K3, the
+    rounding cast of the cotangent to bf16, the zero fill of the output, and
+    any other, with their launches. Since K3 rounds f32 rows itself and
+    writes its whole output, the cast and the fill should read zero on both
+    paths.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
 ``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``;
@@ -128,6 +134,40 @@ def stage_ms(spans, train: bool):
     return ms
 
 
+def _vjp_kind(name: str) -> str:
+    low = name.lower()
+    if "segsum" in low:
+        return "k3_segsum"
+    if "fill" in low:
+        return "zero_fill"
+    if "copy" in low or "bfloat16" in low:
+        return "cast"
+    return "other"
+
+
+def gather_vjp_kernels(prof, runs: int):
+    """Device kernels launched inside the gather VJP's backward
+    (``_GroupPointsBackward`` and the ops under it), ms and launches per run,
+    by kind and by name."""
+    events = prof.events()
+    nodes = [e for e in events if e.name == "_GroupPointsBackward"] or [
+        e for e in events if e.name.endswith("_GroupPointsBackward")]
+    by_kind, by_name = {}, {}
+    stack = list(nodes)
+    while stack:
+        evt = stack.pop()
+        stack.extend(evt.cpu_children)
+        for k in evt.kernels:
+            for table, key in ((by_kind, _vjp_kind(k.name)), (by_name, k.name[:80])):
+                row = table.setdefault(key, {"ms": 0.0, "launches": 0})
+                row["ms"] += k.duration / 1e3 / runs
+                row["launches"] += 1
+    for table in (by_kind, by_name):
+        for row in table.values():
+            row["launches"] /= runs
+    return {"nodes_per_run": len(nodes) / runs, "by_kind": by_kind, "by_name": by_name}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile the train step")
@@ -179,12 +219,18 @@ def main(argv=None) -> None:
     for label, row in sums.items():
         print(f"{label}: {row['ms']:.4f} ms in {row['launches']} launches per "
               f"{'step' if args.train else 'forward'}")
+    vjp = gather_vjp_kernels(prof, 3) if args.train else None
+    if vjp is not None:
+        for kind in ("k3_segsum", "cast", "zero_fill", "other"):
+            row = vjp["by_kind"].get(kind, {"ms": 0.0, "launches": 0})
+            print(f"gather_vjp {kind}: {row['ms']:.4f} ms in {row['launches']:g} launches per step")
     print(json.dumps({
         "card": smi, "mode": "train" if args.train else "inference",
         "path": "fused (K4, influence_cache='none')" if args.fused else "default (einsum, prebuilt cache)",
         "stage_ms": ms,
         "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 3e3,
         "kernel_sums_ms": sums,
+        "gather_vjp_ms": vjp,
         "top_kernels_ms": [
             [e.key[:80], e.self_device_time_total / 3e3, e.count // 3] for e in kernels[:15]
         ],
