@@ -28,7 +28,7 @@ Phases, each printed as one JSON line:
   5. parity: the whole slice on the card (kernels) against the CPU (plain
      versions) at a small ARCHITECTURE_DEEPER configuration with the same
      weights, in f32 with TF32 off: max |Δ logit| ≤ 1e-4 · max |logit| on
-     valid points;
+     valid points, the card's K1, K2 and K4 launches from the plan;
   6. full: the slice at the bench configuration (B=4, N0=16384, 5 levels,
      K=30, 5 views of 120×160, width 128, bf16) with seeded random weights:
      finite logits of shape (4, 16384, 20), 13 radius top-k calls (26 device
@@ -47,7 +47,11 @@ Phases, each printed as one JSON line:
      for the rounded rows, the cast the path ran before (``earlier_cast_ms``);
      k3_adv_*, untimed: every row on one target, every row on the shadow
      row, widths 1, 5, 35, 69 and 300, rows that start off a 16-byte
-     boundary, K = 1;
+     boundary, K = 1; k1_*_deform and k3_*_deform, untimed: K1 at each
+     selection ``infer.deform_config()`` widens to ``deform_radius`` (level
+     3's conv, pool and upsample, level 4's conv: over-full balls at the
+     same k) and K3 at its deformed convs' gathers on those neighbor
+     tensors (3 + Cin: 259 and 515 wide);
   8. train_parity: 3 train steps on the card (kernels, gather VJP
      'banded') against the CPU (plain versions) from the same weights,
      f32, TF32 off, a batch without padded rows: each step's loss within
@@ -83,7 +87,24 @@ Phases, each printed as one JSON line:
      3 train steps of phase 8 with those flags;
  12. full_fused, train_full_fused: phases 6 and 9 on the fused path, with the
      K4 launch counts and the gather VJPs' row widths (3 + Cin at the conv
-     gathers) from the plan, beside the default path's figures.
+     gathers) from the plan, beside the default path's figures;
+ 13. the deformable MV-KPConv and the 3D-only baselines: parity_deform and
+     train_parity_deform, phases 5 and 8 with deformable KPConv in the last
+     two of 3 levels, with and without modulations (the regularizer of
+     each forward and step also within 1e-5 relative, every parameter held,
+     ``offset_conv`` and ``offset_bias`` among them, each step from the
+     CPU's state; the modulated train steps on the 3D-only trunk, where no
+     ReLU of the lift flips at rounding); parity_baseline and train_parity_baseline, the
+     same for the KPFCNN (``fusion='none'``) on the default and the fused
+     path, the forward at the configuration of phase 5, the train steps at 3
+     levels (at 5 a leaky-ReLU input that flips at rounding moves the third
+     step by more than the allowance); parity_kpcnn, phase 5 for the KPCNN
+     classifier; train_full_deform, phase 9 at ``infer.deform_config()`` (the
+     regularizer finite and > 0, the offset parameters' first update at
+     ``deform_lr_factor`` times the learning rate, K3 launches from the
+     plan: two gathers a deformable block); full_baseline and
+     train_full_baseline, phases 6 and 9 at ``infer.baseline_config()``
+     (no K2 launch).
 
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
@@ -108,6 +129,7 @@ BF16_HALF_ULP = 2.0**-8  # of a value: what rounding it to bf16 may move it by
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
 TRAIN_LOSS_REL = 1e-5
+REG_REL = 1e-5  # the deformable regularizer, card against CPU
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL_REL = 1e-3, 1e-5
 
 
@@ -528,6 +550,32 @@ def check_k3_adversarial(p_index, ns, dev, gen, results):
     check_k3("k3_adv_k1", p_index[..., :1].contiguous(), ns, 64, gen, results, timed=False)
 
 
+def check_deform_sites(dcfg, levels, calls, gen, k1_rows, k3_rows):
+    """K1 and K3 where the deformable configuration hands them other inputs
+    than the bench's, untimed: each selection at ``deform_radius`` (6.0
+    cells against 2.5 at the same k: about 14x the ball, most of it
+    dropped), and each deformed conv's gather VJP on those neighbor
+    tensors, f32 rows 3 + Cin wide (odd widths, positions jointly with the
+    bottleneck's features)."""
+    from mvkpconv_tpu_torch.models.kpfcnn import plan_architecture
+    from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
+
+    dspec = dcfg.pyramid_spec()
+    bench = {name: tuple(call) for name, _, _, *call in calls}
+    widened = [c for c in forward_k1_calls(dspec, levels) if tuple(c[3:]) != bench[c[0]]]
+    assert {"k1_L3_conv", "k1_L3_pool", "k1_L4_conv"} <= {c[0] for c in widened}, widened
+    for name, *call in widened:
+        check_k1(f"{name}_deform", *call, k1_rows, timed=False)
+    pyr = build_pyramid(levels[0][0], levels[0][1], dspec)
+    enc, _, _ = plan_architecture(dcfg)
+    sites = {(l, "strided" in name): out_dim // 4 + 3
+             for name, _, out_dim, _, l, _ in enc if "deform" in name}
+    for (l, strided), c in sorted(sites.items()):
+        index = pyr.pools[l] if strided else pyr.neighbors[l]
+        check_k3(f"k3_L{l}_{'strided' if strided else 'resnetb'}_deform", index, dcfg.num_points[l] + 1,
+                 c, gen, k3_rows, timed=False)
+
+
 def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, results, timed=True):
     """The three K4 kernels against their plain versions at one conv site of
     the pyramid, f32 and bf16 features; with ``timed`` also their times.
@@ -775,34 +823,54 @@ def check_k4_shapes(dev, gen, results):
             results.append(row)
 
 
+def is_conv(name):
+    return "simple" in name or "resnetb" in name
+
+
+def fed_raw(model):
+    """1 where the model's first encoder block is a ``simple`` conv fed the
+    batch's own features, which need no gradient (middle fusion's 3D stream,
+    late fusion's only one, the 3D-only KPFCNN); 0 where it takes the lifted
+    features (early fusion), which do."""
+    first = model.encoders[0].plan[0][0]
+    return {"early": 0, "middle": 1, "late": 1, "none": 1}[model.cfg.fusion] if "simple" in first else 0
+
+
 def trunk_gathers(model):
     """Gathers of the trunk whose features need a gradient, from the plan:
-    every conv block's neighbor gather, the max-pool shortcut of each
-    strided block, each upsample and max-pool block. Early fusion's first
-    block takes the lifted 2D features, so every one of them needs it; an
-    encoder fed the batch's own features (see ``conv_blocks``) does not
-    differentiate its first gather."""
-    n = conv_blocks(model)[1] - conv_blocks(model)[0]
+    every conv block's neighbor gather (a deformable block's two: its
+    offset conv's and its deformed conv's), the max-pool shortcut of each
+    strided block, each upsample and max-pool block; not the first gather of
+    an encoder fed the batch's own features (``fed_raw``)."""
+    n = -fed_raw(model)
     for part in (*model.encoders, model.decoder):
         for name, *_ in part.plan:
-            if "simple" in name or "resnetb" in name:
-                n += 2 if "strided" in name else 1
+            if is_conv(name):
+                n += 1 + ("strided" in name) + ("deform" in name)
             elif "upsample" in name or "pool" in name:
                 n += 1
     return n
 
 
-def gather_vjp_widths(model, fused):
+def gather_vjp_widths(model, cached):
     """Row widths of the trunk's gather VJPs, one per K3 launch, from the
     plan: a conv block gathers its KPConv's input features (a resnetb block
-    its bottleneck, a quarter of the block's width), on the fused path
-    jointly with the 3 position columns; a strided block's shortcut and an
-    upsample or pool block gather their input as it is."""
+    its bottleneck, a quarter of the block's width), jointly with the 3
+    position columns where it has no cached influence (the fused path); a
+    deformable block's deformed conv always gathers them jointly, its
+    offset conv as a rigid block does; a strided block's shortcut and an
+    upsample or pool block gather their input as it is; an encoder's first
+    block fed the batch's own features (``fed_raw``) has no gather VJP."""
     widths = []
     for part in (*model.encoders, model.decoder):
-        for name, in_dim, out_dim, *_ in part.plan:
-            if "simple" in name or "resnetb" in name:
-                widths.append((in_dim if "simple" in name else out_dim // 4) + (3 if fused else 0))
+        for i, (name, in_dim, out_dim, *_) in enumerate(part.plan):
+            if i == 0 and part is model.encoders[0] and fed_raw(model):
+                continue
+            if is_conv(name):
+                cin = in_dim if "simple" in name else out_dim // 4
+                widths.append(cin + (0 if cached else 3))
+                if "deform" in name:
+                    widths.append(cin + 3)
                 if "strided" in name:
                     widths.append(in_dim)
             elif "upsample" in name or "pool" in name:
@@ -811,17 +879,30 @@ def gather_vjp_widths(model, fused):
 
 
 def conv_blocks(model):
-    """(KPConv blocks of the trunk, those whose input features need a
+    """(rigid KPConv blocks of the trunk, those whose input features need a
     gradient) from the plan. The fused path launches one K4 forward and one
-    ``wf`` per block, and one ``bwd_x`` per block whose input needs a
-    gradient: every block but the first of an encoder that is fed the batch's
-    own features (middle fusion's 3D stream, late fusion's only one; early
-    fusion's first block takes the lifted features, which do)."""
-    is_conv = lambda name: "simple" in name or "resnetb" in name  # noqa: E731
-    total = sum(is_conv(e[0]) for part in (*model.encoders, model.decoder) for e in part.plan)
-    fed_raw = {"early": 0, "middle": 1, "late": 1}[model.cfg.fusion]
-    first_is_conv = is_conv(model.encoders[0].plan[0][0])
-    return total, total - (fed_raw if first_is_conv else 0)
+    ``wf`` per rigid block (a deformable block never reaches K4), and one
+    ``bwd_x`` per such block whose input needs a gradient: all but a first
+    block fed the batch's own features (``fed_raw``)."""
+    total = sum(is_conv(e[0]) and "deform" not in e[0]
+                for part in (*model.encoders, model.decoder) for e in part.plan)
+    return total, total - fed_raw(model)
+
+
+def deform_layers(model):
+    from mvkpconv_tpu_torch.models.blocks import KPConvLayer
+
+    return [m for m in model.modules() if isinstance(m, KPConvLayer) and m.deformable]
+
+
+def regularizer(model, cfg):
+    """The deformable regularizer of the model's last forward (0 without
+    deformable layers)."""
+    import torch
+    from mvkpconv_tpu_torch.training.losses import deform_regularization
+
+    with torch.no_grad():
+        return float(deform_regularization(model, cfg.repulse_extent, cfg.deform_fitting_power))
 
 
 def check_train_parity(phase, label, cfg, dev, resumed):
@@ -859,6 +940,7 @@ def check_train_parity(phase, label, cfg, dev, resumed):
         want = float(train_steps(cpu_tr, cpu_b, 1)[0]["loss"])
         got = float(train_steps(gpu_tr, gpu_b, 1)[0]["loss"])
         loss_rel = abs(got - want) / abs(want)
+        reg_cpu, reg_card = regularizer(cpu_tr.model, cfg), regularizer(gpu_tr.model, cfg)
         params = [(name, p.detach(), q.detach().cpu()) for (name, p), q in
                   zip(cpu_tr.model.named_parameters(), gpu_tr.model.parameters())]
         atol = TRAIN_PARAM_ATOL_REL * max(float(p.abs().max()) for _, p, _ in params)
@@ -868,10 +950,13 @@ def check_train_parity(phase, label, cfg, dev, resumed):
         emit({"phase": phase, "config": f"{label}, f32, banded",
               "start": "the CPU's state" if resumed else "free-running", "step": step,
               "loss_card": got, "loss_cpu": want, "loss_rel_err": loss_rel,
+              "regularizer_card": reg_card, "regularizer_cpu": reg_cpu,
               "param_err_over_allowance": over[worst], "worst_param": worst,
               "params_outside": sum(r > 1.0 for r in over.values()), "params": len(over),
               "launches": read_launches()})
         assert np.isfinite(got) and loss_rel <= TRAIN_LOSS_REL, "card/CPU train loss disagree"
+        assert abs(reg_card - reg_cpu) <= REG_REL * abs(reg_cpu), "card/CPU regularizer disagree"
+        assert (reg_cpu > 0) == bool(deform_layers(cpu_tr.model)), reg_cpu
         assert over[worst] <= 1.0, "card/CPU parameters disagree"
     launches = read_launches()
     n_conv, n_bwd_x = conv_blocks(gpu_tr.model)
@@ -880,32 +965,47 @@ def check_train_parity(phase, label, cfg, dev, resumed):
     assert launches["kpconv_fused_bwd_x"] == (3 * n_bwd_x if runs_k4(cfg) else 0), launches
 
 
-def check_forward_parity(phase, label, cfg, dev):
+def check_forward_parity(phase, label, cfg, dev, build=None):
     """The forward on the card (kernels) against the CPU (plain versions)
     from the same weights, f32, TF32 off, on a batch with padded rows:
-    max |Δ logit| ≤ 1e-4 · max |logit| on valid points."""
+    max |Δ logit| ≤ 1e-4 · max |logit| on valid points (every logit of a
+    classifier, which has no point axis); with deformable layers the
+    regularizer of the forward within 1e-5 relative; the card's launches
+    held to the plan. ``build(cfg, device, seed)`` makes the model
+    (default ``make_model``)."""
     import numpy as np
     import torch
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
     from mvkpconv_tpu_torch.infer import batch_to_device, infer, make_model
-    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
 
-    cpu_model = make_model(cfg, "cpu", seed=1)
-    gpu_model = make_model(cfg, dev, seed=2)
+    build = build or make_model
+    cpu_model = build(cfg, "cpu", seed=1)
+    gpu_model = build(cfg, dev, seed=2)
     gpu_model.load_state_dict(cpu_model.state_dict())
     sb = make_batch(cfg, 2, np.random.RandomState(1))
     sb["mask"][-1, -24:] = False
     sb["points"] = np.where(sb["mask"][..., None], sb["points"], np.float32(1e6))
     want = infer(cpu_model, batch_to_device(sb, "cpu"))
-    k4.kpconv_fused_fwd.launches = 0
+    reset_launches()
     got = infer(gpu_model, batch_to_device(sb, dev)).cpu()
-    mask = torch.from_numpy(sb["mask"])
-    err = float((got - want).abs()[mask].max())
-    scale = float(want.abs()[mask].max())
-    emit({"phase": phase, "config": label, "max_abs_err": err, "max_abs_logit": scale,
-          "limit": PARITY_REL * scale, "k4_fwd_launches": k4.kpconv_fused_fwd.launches})
+    launches = read_launches()
+    keep = torch.from_numpy(sb["mask"]) if got.dim() == 3 else torch.ones(got.shape[0], dtype=torch.bool)
+    err = float((got - want).abs()[keep].max())
+    scale = float(want.abs()[keep].max())
+    reg_cpu, reg_card = regularizer(cpu_model, cfg), regularizer(gpu_model, cfg)
+    emit({"phase": phase, "config": label, "logits_shape": list(got.shape), "max_abs_err": err,
+          "max_abs_logit": scale, "limit": PARITY_REL * scale, "launches": launches,
+          "deformable_layers": len(deform_layers(gpu_model)),
+          "regularizer_card": reg_card, "regularizer_cpu": reg_cpu})
+    assert got.shape == want.shape, (got.shape, want.shape)
     assert bool(torch.isfinite(got).all()) and err <= PARITY_REL * scale, "card/CPU logits disagree"
-    assert k4.kpconv_fused_fwd.launches == (conv_blocks(gpu_model)[0] if runs_k4(cfg) else 0)
+    assert abs(reg_card - reg_cpu) <= REG_REL * abs(reg_cpu), "card/CPU regularizer disagree"
+    assert (reg_cpu > 0) == bool(deform_layers(cpu_model)), reg_cpu
+    # the pyramid's selections: a conv per level, a pool and an upsample between two
+    k1_calls = 3 * cfg.num_layers - 2
+    assert launches["radius_topk"] == k1_calls and launches["radius_topk_device"] == 2 * k1_calls, launches
+    assert launches["pixel_topk"] == (0 if cfg.fusion == "none" else 1), launches
+    assert launches["kpconv_fused_fwd"] == (conv_blocks(gpu_model)[0] if runs_k4(cfg) else 0), launches
 
 
 def runs_k4(cfg):
@@ -941,6 +1041,16 @@ def read_launches():
             "radius_topk_device": counters["radius_topk"].device_launches}
 
 
+def config_label(cfg, what=""):
+    """The bench configuration's description, with what sets ``cfg`` apart."""
+    label = f"bench.py:106-117{what} (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16"
+    if cfg.fusion == "none":
+        label = f"bench.py:106-117{what} as the 3D-only KPFCNN (fusion='none', in_features_dim=2; B=4, N0=16384, K=30, width 128, bf16"
+    if any("deform" in b for b in cfg.architecture):
+        label += ", blocks 9-13 deformable (their levels' neighbors within deform_radius 6.0)"
+    return label + (", use_pallas_kpconv=True, influence_cache='none'" if runs_k4(cfg) else "") + ")"
+
+
 def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
     """The inference slice at full width: a warm-up, then ``forwards`` timed
     forwards with every kernel's launches counted and held to the plan."""
@@ -963,14 +1073,11 @@ def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
     assert bool(torch.isfinite(logits).all()), "non-finite logits"
     assert launches["radius_topk"] == 13 * forwards, launches
     assert launches["radius_topk_device"] == 26 * forwards, launches
-    assert launches["pixel_topk"] == forwards, launches
+    assert launches["pixel_topk"] == (0 if cfg.fusion == "none" else forwards), launches
     assert launches["kpconv_fused_fwd"] == (n_conv * forwards if runs_k4(cfg) else 0), (launches, n_conv)
     assert launches["segsum"] == launches["kpconv_fused_bwd_x"] == launches["kpconv_wf"] == 0, launches
     row = {
-        "phase": phase,
-        "config": "bench.py:106-117 (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16)"
-                  + (", use_pallas_kpconv=True, influence_cache='none'" if runs_k4(cfg) else ""),
-        "forwards": forwards, "ms_per_forward": dt * 1e3,
+        "phase": phase, "config": config_label(cfg), "forwards": forwards, "ms_per_forward": dt * 1e3,
         "points_per_s": cfg.batch_num * cfg.num_points[0] / dt, "launches": launches,
         "conv_blocks": n_conv,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
@@ -984,17 +1091,35 @@ def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
 
 def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     """The train step at full width: a warm-up step, then ``steps`` timed
-    steps; loss finite, every trainable tensor moved, ``net_2d`` unchanged bit
-    for bit, every kernel's launches held to the plan."""
+    steps; loss finite, every trainable tensor moved, ``net_2d`` (where the
+    model has one) unchanged bit for bit, every kernel's launches held to the
+    plan. With deformable layers also: the regularizer finite and > 0, and
+    the warm-up step's update of the offset parameters (``offset_conv``,
+    ``offset_bias``) ``deform_lr_factor`` times the rest's: the least-squares
+    step size −Δp·g / g·g of each group within 1e-3 of its learning rate."""
     import numpy as np
     import torch
     from mvkpconv_tpu_torch.ops import gather
     from mvkpconv_tpu_torch.train import make_trainer, train_steps
 
     trainer = make_trainer(cfg, dev, seed=0)
-    frozen = {k: v.clone() for k, v in trainer.model.net_2d.state_dict().items()}
+    net_2d = getattr(trainer.model, "net_2d", None)
+    frozen = {} if net_2d is None else {k: v.clone() for k, v in net_2d.state_dict().items()}
     start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not n.startswith("net_2d.")}
     train_steps(trainer, batch, 1)  # warm-up (cuDNN autotune, allocator)
+    deformable = bool(deform_layers(trainer.model))
+    step_size = {}
+    if deformable:
+        for group in ("deform", "train"):
+            num = den = 0.0
+            for n, p in trainer.model.named_parameters():
+                if n in start and ("offset_" in n) == (group == "deform"):
+                    num += float(((start[n] - p.detach()) * p.grad).sum())
+                    den += float((p.grad * p.grad).sum())
+            step_size[group] = num / den
+        lr = cfg.learning_rate
+        assert abs(step_size["train"] / lr - 1) <= 1e-3, (step_size, lr)
+        assert abs(step_size["deform"] / (lr * cfg.deform_lr_factor) - 1) <= 1e-3, (step_size, lr)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launches()
@@ -1017,43 +1142,112 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     finally:
         gather.segsum = segsum
     losses = [float(m["loss"]) for m in metrics]
+    reg = regularizer(trainer.model, cfg)
     n_gathers = trunk_gathers(trainer.model)
     n_conv, n_bwd_x = conv_blocks(trainer.model)
     fused = runs_k4(cfg)
     changed = sum(not torch.equal(p.detach(), start[n]) for n, p in trainer.model.named_parameters()
                   if n in start)
     assert all(np.isfinite(losses)), losses
-    assert all(torch.equal(v, frozen[k]) for k, v in trainer.model.net_2d.state_dict().items()), "net_2d moved"
+    assert np.isfinite(reg) and (reg > 0) == deformable, reg
+    if net_2d is not None:
+        assert all(torch.equal(v, frozen[k]) for k, v in net_2d.state_dict().items()), "net_2d moved"
     assert changed == len(start), f"{len(start) - changed} trainable parameters did not move"
     assert launches["segsum"] == n_gathers * steps, (launches, n_gathers)
     # a plan a neighbor tensor of the step (the pyramid's 3 L - 2), built on
     # its first gather VJP: fewer than the gather VJPs
     assert 0 < launches["segsum_plan"] <= (3 * cfg.num_layers - 2) * steps, launches
     assert launches["segsum_plan"] < launches["segsum"], launches
-    assert sorted(seen) == gather_vjp_widths(trainer.model, fused), (sorted(seen), fused)
+    cached = cfg.influence_cache != "none"
+    assert sorted(seen) == gather_vjp_widths(trainer.model, cached), (sorted(seen), cached)
     # banded_bf16: every cotangent reaches K3 in f32 with the rounding asked
     # for, so no cast runs before it, and with its neighbor tensor's plans
     assert handed == {("float32", True, True)}, handed
-    assert launches["radius_topk"] == 13 * steps and launches["pixel_topk"] == steps, launches
+    assert launches["radius_topk"] == 13 * steps, launches
+    assert launches["pixel_topk"] == (0 if cfg.fusion == "none" else steps), launches
     assert launches["radius_topk_device"] == 26 * steps, launches
     assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
     assert launches["kpconv_fused_bwd_x"] == (n_bwd_x * steps if fused else 0), (launches, n_bwd_x)
     row = {
-        "phase": phase,
-        "config": "bench.py:106-117 train step (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16, banded_bf16)"
-                  + (", use_pallas_kpconv=True, influence_cache='none'" if fused else ""),
-        "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
+        "phase": phase, "config": config_label(cfg, " train step, banded_bf16"), "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
         "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": launches,
         "trunk_gathers_with_grad": n_gathers, "gather_vjp_row_widths": sorted(seen),
         "gather_vjp_rows": sorted(f"{d}{' round_bf16' if r else ''}" for d, r, _ in handed),
         "conv_blocks": n_conv, "conv_blocks_with_input_grad": n_bwd_x,
-        "params_moved": changed,
+        "params_moved": changed, "deformable_layers": len(deform_layers(trainer.model)),
+        "regularizer_last": reg, "step_size_by_group": step_size,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
     }
     if beside is not None:
         row["default_path"] = {k: beside[k] for k in ("ms_per_step", "points_per_s", "peak_mem_gib")}
     emit(row)
     return row, launches
+
+
+def check_deform_and_baselines(dev, batch, smi, small, full_row, train_row):
+    """The deformable MV-KPConv and the 3D-only baselines: card against CPU
+    at small configurations (forward, 3 train steps), then the deformable
+    train step and the KPFCNN forward and train step at full width, each
+    with its launch counts held to the plan. Returns the launches of the
+    three full-width runs."""
+    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, baseline_config, deform_config
+    from mvkpconv_tpu_torch.models.kpfcnn import KPCNN
+    from mvkpconv_tpu_torch.training.config import KPConfig
+    from mvkpconv_tpu_torch.training.init import init_parameters
+
+    deform_small = small.replace(
+        architecture=("simple", "resnetb", "resnetb_strided", "resnetb_deformable",
+                      "resnetb_deformable_strided", "resnetb_deformable",
+                      "nearest_upsample", "unary", "nearest_upsample", "unary"),
+        num_points=small.num_points[:3], conv_neighbors=small.conv_neighbors[:3],
+        pool_neighbors=small.pool_neighbors[:2],
+    )
+    deform_label = "3 levels, the last two deformable, N0=1024, width 32"
+    for modulated in (False, True):
+        what = ", modulated" if modulated else ""
+        check_forward_parity("parity_deform", f"MV-KPConv, {deform_label}, 3 views 24x32{what}, f32",
+                             deform_small.replace(modulated=modulated), dev)
+    check_train_parity("train_parity_deform", f"MV-KPConv, {deform_label}, 3 views 24x32",
+                       deform_small, dev, resumed=True)
+    # the modulated steps on the 3D-only trunk: with the lift, ReLU inputs in
+    # FeatureAggregation that flip at rounding move a step by more than the
+    # allowance (tests/test_torch_deformable.py, the lift's ReLU flips)
+    check_train_parity("train_parity_deform", f"KPFCNN (fusion='none'), {deform_label}, modulated",
+                       deform_small.replace(modulated=True, fusion="none", in_features_dim=2),
+                       dev, resumed=True)
+    base_small = small.replace(fusion="none", in_features_dim=2)
+    base_label = "KPFCNN (fusion='none'), ARCHITECTURE_DEEPER, N0=1024, width 32"
+    # the train steps at 3 levels: at 5, one leaky-ReLU input of the third
+    # step that flips at rounding moves a tensor by ~2x the allowance
+    # (tests/test_torch_baselines.py, the deeper trunk's flips)
+    base_three = deform_small.replace(
+        fusion="none", in_features_dim=2,
+        architecture=tuple(b.replace("_deformable", "") for b in deform_small.architecture))
+    for flags, what in (({}, ""), (FUSED_OPTIONS, ", K4")):
+        check_forward_parity("parity_baseline", f"{base_label}, f32{what}", base_small.replace(**flags), dev)
+        check_train_parity("train_parity_baseline", f"KPFCNN (fusion='none'), 3 levels, N0=1024, width 32{what}",
+                           base_three.replace(**flags), dev, resumed=True)
+    kpcnn = KPConfig(
+        fusion="none", in_features_dim=2, num_classes=40, first_features_dim=32,
+        architecture=("simple", "resnetb", "resnetb_strided", "resnetb", "resnetb_strided",
+                      "resnetb", "global_average"),
+        num_points=(1024, 256, 64), conv_neighbors=(16,) * 3, pool_neighbors=(16,) * 2,
+    )
+
+    def build_kpcnn(cfg, device, seed):
+        return init_parameters(KPCNN(cfg), seed).to(device).eval()
+
+    check_forward_parity("parity_kpcnn", "KPCNN, 3 levels, N0=1024, width 32, 40 classes, f32", kpcnn, dev,
+                         build=build_kpcnn)
+
+    base = baseline_config()
+    return {
+        "train_full_deform": run_train_full("train_full_deform", deform_config(), dev, batch, smi,
+                                            beside=train_row)[1],
+        "full_baseline": run_full("full_baseline", base, dev, batch, smi, beside=full_row)[1],
+        "train_full_baseline": run_train_full("train_full_baseline", base, dev, batch, smi,
+                                              beside=train_row)[1],
+    }
 
 
 def main() -> int:
@@ -1069,7 +1263,7 @@ def main() -> int:
     import numpy as np
 
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
-    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, batch_to_device, bench_config, fused_config
+    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, batch_to_device, bench_config, deform_config, fused_config
     from mvkpconv_tpu_torch.models.kpfcnn import plan_architecture
     from mvkpconv_tpu_torch.ops import _build
     from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
@@ -1167,6 +1361,8 @@ def main() -> int:
     check_k3("k3_L0_simple_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + enc[0][1], gen, k3_rows)
     k3_adv_rows = []
     check_k3_adversarial(pyr.neighbors[0], cfg.num_points[0] + 1, dev, gen, k3_adv_rows)
+    # the deformable path's selections and deformed gathers (train_full_deform)
+    check_deform_sites(deform_config(), levels, calls, gen, k1_rows, k3_rows)
     top = len(pyr.points) - 1
     for name, q_l, s_l, inds, entry, cin, cout in (
         ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
@@ -1207,6 +1403,15 @@ def main() -> int:
     fused_row, fused_launches = run_full("full_fused", fused, dev, batch, smi, beside=full_row)
     fused_train_row, fused_train_launches = run_train_full("train_full_fused", fused, dev, batch, smi, beside=train_row)
 
+    # ---- deformable MV-KPConv, the KPFCNN and KPCNN baselines ----
+    other_paths = check_deform_and_baselines(dev, batch, smi, small, full_row, train_row)
+    by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
+               "train_full_fused": fused_train_launches, **other_paths}
+
+    def path_launches(*names):
+        """Each full-width run's launches of a kernel, over its forwards or steps."""
+        return {path: {n: counts[n] for n in names} for path, counts in by_path.items()}
+
     l0 = k1_rows[0]
     bf16 = k2_rows[0]
     # K3 as the default path hands it its rows: f32, rounded by the kernel
@@ -1228,12 +1433,13 @@ def main() -> int:
          "replaces": "mvkpconv_tpu/ops/pallas/radius_topk.py:121",
          "launches": launches["radius_topk"],
          "device_launches": launches["radius_topk_device"],
+         "launches_by_path": path_launches("radius_topk", "radius_topk_device"),
          "max_abs_err": max(r["max_d2_gap"] for r in k1_rows + k1_adv_rows),
          "ms": l0["ms"], "plain_ms": l0["plain_ms"], "bound_ms": l0["bound_ms"],
          "bound_by": l0["bound_by"], "library_ms": None},
         {"name": "pixel_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pixel_select.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/pixel_select.py:97",
-         "launches": launches["pixel_topk"],
+         "launches": launches["pixel_topk"], "launches_by_path": path_launches("pixel_topk"),
          "max_abs_err": max(r["max_d2_gap"] for r in k2_rows + k2_adv_rows),
          "timing": "device time, torch.profiler",
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
@@ -1242,6 +1448,7 @@ def main() -> int:
         {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
          "launches": train_launches["segsum"], "plan_launches": train_launches["segsum_plan"],
+         "launches_by_path": path_launches("segsum", "segsum_plan"),
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows + k3_adv_rows),
          "timing": "device time, torch.profiler; ms with the index's plan cached",
          "plan_ms": k3_main["plan_ms"], "first_call_ms": k3_main["first_call_ms"],
@@ -1253,9 +1460,12 @@ def main() -> int:
          "earlier_from": EARLIER_FROM + ": the cast to bf16, then the kernel on bf16 rows",
          "bf16_rows": {x: k3_bf16[x] for x in ("ms", "bound_ms", "earlier_ms", "library_ms")}},
         {**k4_entry("kpconv_fused", "fwd", fused_launches["kpconv_fused_fwd"]),
-         "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"]},
-        k4_entry("kpconv_fused_bwd_x", "bwd_x", fused_train_launches["kpconv_fused_bwd_x"]),
-        k4_entry("kpconv_wf", "wf", fused_train_launches["kpconv_wf"]),
+         "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"],
+         "launches_by_path": path_launches("kpconv_fused_fwd")},
+        {**k4_entry("kpconv_fused_bwd_x", "bwd_x", fused_train_launches["kpconv_fused_bwd_x"]),
+         "launches_by_path": path_launches("kpconv_fused_bwd_x")},
+        {**k4_entry("kpconv_wf", "wf", fused_train_launches["kpconv_wf"]),
+         "launches_by_path": path_launches("kpconv_wf")},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

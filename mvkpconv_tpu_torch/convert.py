@@ -15,7 +15,13 @@ the layout changes:
   * BN ``scale``/``bias`` + ``batch_stats`` ``mean``/``var`` →
     ``weight``/``bias``/``running_mean``/``running_var``;
   * ``MaskedBatchNorm`` with ``use_bn=False`` → its bias only;
-  * KPConv ``weights`` (M, Cin, Cout) as they are.
+  * KPConv ``weights`` (M, Cin, Cout) as they are, and a deformable
+    layer's ``offset_bias`` (its ``offset_conv`` is a KPConv layer of its
+    own).
+
+A deformable model's variables also carry the ``intermediates`` collection
+(the activations its layers sow for the fitting regularizer): it holds no
+weights and is dropped.
 
 It raises on any flax leaf it did not use and on any torch parameter or
 buffer it did not set.
@@ -54,7 +60,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
         for col in ("params", "batch_stats")
         for key, val in _flatten(variables.get(col, {})).items()
     }
-    extra_cols = set(variables) - {"params", "batch_stats"}
+    extra_cols = set(variables) - {"params", "batch_stats", "intermediates"}
     if extra_cols:
         raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
     used = set()
@@ -96,6 +102,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             put("bias", "params", "bias")
         elif isinstance(mod, KPConvLayer):
             put("weights", "params", "weights")
+            if mod.deformable:
+                put("offset_bias", "params", "offset_bias")
 
     unused = sorted(f"{c}:{k}" for c, k in set(leaves) - used)
     if unused:

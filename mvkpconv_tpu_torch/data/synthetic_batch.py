@@ -4,8 +4,10 @@
 A copy of ``__graft_entry__._make_batch``, which the port cannot import (that
 module imports jax at top level). Points are uniform in the input sphere's
 bounding cube and sorted by voxel id (x-major), as the data pipeline emits
-them; depth maps have two invalid rows per view. A test pins it to the
-original.
+them; depth maps have two invalid rows per view. The features are
+``cfg.base_feature_dim`` wide, the original's width on every fusion
+configuration and the baseline's (``fusion='none'``) too. A test pins it to
+the original.
 """
 
 from __future__ import annotations
@@ -29,11 +31,10 @@ def make_batch(cfg, b: int, rng: np.random.RandomState) -> dict:
     K = np.zeros((b, v, 3, 3), np.float32)
     K[..., 0, 0] = K[..., 1, 1] = 0.6 * w
     K[..., 0, 2], K[..., 1, 2], K[..., 2, 2] = w / 2, h / 2, 1.0
-    base_dim = cfg.in_features_dim - cfg.feature_2d_dim
     return {
         "points": np.where(mask[..., None], pts, 1e6).astype(np.float32),
         "mask": mask,
-        "features": rng.randn(b, n0, base_dim).astype(np.float32),
+        "features": rng.randn(b, n0, cfg.base_feature_dim).astype(np.float32),
         "labels": rng.randint(0, cfg.num_classes, (b, n0)).astype(np.int32),
         "images": rng.rand(b, v, h, w, 3).astype(np.float32),
         "depth": depth,

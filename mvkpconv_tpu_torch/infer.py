@@ -1,12 +1,14 @@
 """Inference entry point: the port's counterpart of ``__graft_entry__.entry``'s
 ``fn`` and of ``bench.py``'s ``infer``.
 
-``build_pyramid(points, mask, spec)`` then ``model(batch, pyr)``, on the
-device the batch lies on. The model is built on the first CUDA device unless
-the caller names another (``device="cpu"`` runs every kernel's plain
-version). Usage::
+``build_pyramid(points, mask, spec)`` then the model, on the device the
+batch lies on. The model is built on the first CUDA device unless the
+caller names another (``device="cpu"`` runs every kernel's plain version).
+``make_model`` builds an MV-KPConv, or the 3D-only KPFCNN baseline where
+``cfg.fusion == 'none'``, as the JAX package's tools do. Usage::
 
-    cfg = bench_config()            # or fused_config(), or fusion="middle" / "late"
+    cfg = bench_config()  # or fused_config(), deform_config(), baseline_config(),
+                          # or fusion="middle" / "late"
     model = make_model(cfg, seed=0)
     batch = batch_to_device(make_batch(cfg, 4, np.random.RandomState(0)), "cuda")
     logits = infer(model, batch)  # (B, N0, num_classes) f32
@@ -14,14 +16,16 @@ version). Usage::
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 import torch
+from torch import nn
 
+from mvkpconv_tpu_torch.models.kpfcnn import KPCNN, KPFCNN
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv
-from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
-from mvkpconv_tpu_torch.training.config import KPConfig
+from mvkpconv_tpu_torch.ops.pyramid import Pyramid, build_pyramid
+from mvkpconv_tpu_torch.training.config import ARCHITECTURE_DEEPER, KPConfig
 from mvkpconv_tpu_torch.training.init import init_parameters
 
 
@@ -50,6 +54,27 @@ def fused_config() -> KPConfig:
     return bench_config().replace(**FUSED_OPTIONS)
 
 
+def baseline_config() -> KPConfig:
+    """The bench configuration as the 3D-only KPFCNN baseline: no 2D
+    features, the batch's 2 base feature columns in."""
+    return bench_config().replace(fusion="none", in_features_dim=2)
+
+
+# ARCHITECTURE_DEEPER with its last two levels deformable (blocks 9–13), the
+# deformable layout of KP-FCNN
+DEFORM_ARCHITECTURE = ARCHITECTURE_DEEPER[:9] + (
+    "resnetb_deformable", "resnetb_deformable", "resnetb_deformable_strided",
+    "resnetb_deformable", "resnetb_deformable",
+) + ARCHITECTURE_DEEPER[14:]
+
+
+def deform_config() -> KPConfig:
+    """The bench configuration with deformable KPConv in its last two levels:
+    their neighbors within ``deform_radius`` (6.0 cells, 2.5 for the rigid
+    levels) at the same K, and the deformable regularizer in the loss."""
+    return bench_config().replace(architecture=DEFORM_ARCHITECTURE)
+
+
 def resolve_device(device=None) -> torch.device:
     """``device``, or the first CUDA device when none is named; raises where
     that default has no card to run on."""
@@ -63,12 +88,21 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def make_model(cfg, device=None, seed: int = 0) -> MVKPConv:
-    """An MV-KPConv in eval mode with weights drawn from ``seed``, on
-    ``device`` (default: the first CUDA device; raises without one)."""
-    model = MVKPConv(cfg).to(resolve_device(device))
+def make_model(cfg, device=None, seed: int = 0) -> Union[MVKPConv, KPFCNN]:
+    """An MV-KPConv, or a KPFCNN where ``cfg.fusion == 'none'``, in eval
+    mode with weights drawn from ``seed``, on ``device`` (default: the first
+    CUDA device; raises without one)."""
+    model = (KPFCNN(cfg) if cfg.fusion == "none" else MVKPConv(cfg)).to(resolve_device(device))
     init_parameters(model, seed)
     return model.eval()
+
+
+def apply_model(model: nn.Module, batch: Dict[str, torch.Tensor], pyr: Pyramid) -> torch.Tensor:
+    """Logits of ``model`` on ``batch`` (JAX ``make_apply_fn``): a KPFCNN
+    or a KPCNN takes the level-0 features, an MV-KPConv the whole batch."""
+    if isinstance(model, (KPFCNN, KPCNN)):
+        return model(batch["features"], pyr)
+    return model(batch, pyr)
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -76,7 +110,8 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 
 @torch.inference_mode()
-def infer(model: MVKPConv, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Logits (B, N0, num_classes) of one batch: pyramid, lift, trunk, head."""
+def infer(model: Union[MVKPConv, KPFCNN, KPCNN], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Logits (B, N0, num_classes) of one batch, (B, num_classes) for a
+    KPCNN: pyramid, (lift,) trunk, head."""
     pyr = build_pyramid(batch["points"], batch["mask"], model.cfg.pyramid_spec())
-    return model(batch, pyr)
+    return apply_model(model, batch, pyr)

@@ -1,4 +1,4 @@
-"""KPConv network blocks, rigid path (``mvkpconv_tpu/models/blocks.py``).
+"""KPConv network blocks (``mvkpconv_tpu/models/blocks.py``).
 
 Dense batched layout ``(B, N, C)``, shadow neighbor indices (== N_support ⇒
 zero feature row), masked batch norm and the KPConv math of the JAX
@@ -17,7 +17,12 @@ Numerics follow the JAX package op by op:
 Blocks read ``self.training``: batch norm takes the masked batch statistics
 in training mode. Every feature gather goes through ``group_points``, whose
 backward is the gather-transpose mode in scope at the forward.
-Deformable and modulated blocks are not ported yet (ROADMAP queue 1, P7).
+
+Deformable blocks (``*_deformable*`` names) predict per-query kernel point
+offsets (and, with ``cfg.modulated``, per-kernel-point modulations) with a
+rigid offset conv, then convolve with the deformed kernel points; each
+deformable ``KPConvLayer`` keeps what the fitting regularizer needs
+(``training/losses.py:deform_regularization``) on itself.
 """
 
 from __future__ import annotations
@@ -31,8 +36,6 @@ from torch import nn
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
 from mvkpconv_tpu_torch.ops.gather import group_points, pad_shadow_row
 from mvkpconv_tpu_torch.ops.kernels.kpconv import kpconv_fused
-
-_DEFORM_TODO = "deformable / modulated KPConv is not ported yet (ROADMAP queue 1, P7 item 2)"
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -96,13 +99,17 @@ def rigid_influence(
     return _influence(_kp_sq_dists(neighbors, kernel_pts), kp_extent, influence, aggregation)
 
 
-def _contract(all_w, nx, weights, compute_dtype):
+def _contract(all_w, nx, weights, compute_dtype, modulations=None):
     """einsum 'bqkm,bqkc->bqmc' then the (M·Cin, Cout) product, both with
-    operands in ``compute_dtype`` and f32 accumulation; f32 out."""
+    operands in ``compute_dtype`` and f32 accumulation; f32 out. Modulations
+    (B, Nq, M) scale each kernel point's weighted sum, in f32, before the
+    product."""
     m, cin, cout = weights.shape
     wf = torch.einsum(
         "bqkm,bqkc->bqmc", all_w.to(compute_dtype), nx.to(compute_dtype)
     )  # f32-accumulated; a bf16 result is the f32 sum rounded once
+    if modulations is not None:
+        wf = wf.float() * modulations[..., None].float()
     wf = wf.reshape(wf.shape[0], wf.shape[1], m * cin).to(compute_dtype).float()
     return torch.matmul(wf, weights.reshape(m * cin, cout).to(compute_dtype).float())
 
@@ -120,8 +127,11 @@ def kpconv_apply(
     compute_dtype: torch.dtype = torch.float32,
     precomputed_influence: Optional[torch.Tensor] = None,
     use_fused: bool = False,
-) -> torch.Tensor:
-    """Rigid kernel point convolution → (B, Nq, Cout) f32.
+    kp_offsets: Optional[torch.Tensor] = None,
+    kp_modulations: Optional[torch.Tensor] = None,
+    return_deform_aux: bool = False,
+):
+    """Kernel point convolution → (B, Nq, Cout) f32.
 
     With ``precomputed_influence`` (B, Nq, K, M) the geometry is skipped
     (features-only gather + contraction); otherwise positions ⊕ features
@@ -131,24 +141,47 @@ def kpconv_apply(
     ``use_fused``, as in the JAX package. The points carry no gradient (the
     pyramid is an input), so the fused kernel gets the neighbor offsets
     detached.
+
+    Deformable: ``kp_offsets`` (B, Nq, M, 3) move the kernel points per
+    query, and the squared distances are the explicit differences to the
+    moved points; ``kp_modulations`` (B, Nq, M) scale each kernel point's
+    weighted sum. A deformed call ignores ``precomputed_influence`` and
+    ``use_fused``. With ``return_deform_aux`` it returns ``(out, (min_d2,
+    kp_abs))``: each (moved) kernel point's least d² to a real neighbor
+    (B, Nq, M; 0 where a query has none) and the moved kernel points
+    (B, Nq, M, 3).
     """
-    if precomputed_influence is not None:
+    rigid = kp_offsets is None and not return_deform_aux
+    if precomputed_influence is not None and rigid:
         nx = group_points(pad_shadow_row(x), neighb_inds)
-        return _contract(precomputed_influence, nx, weights, compute_dtype)
+        return _contract(precomputed_influence, nx, weights, compute_dtype, kp_modulations)
     s_pad = torch.cat([s_pts, torch.full_like(s_pts[:, :1], 1e6)], dim=1)
     payload = torch.cat([s_pad, pad_shadow_row(x.to(s_pts.dtype))], dim=-1)
     gathered = group_points(payload, neighb_inds)
     neighbors = gathered[..., :3] - q_pts[:, :, None, :]
-    if use_fused and influence == "linear" and aggregation == "sum":
+    if (use_fused and rigid and kp_modulations is None
+            and influence == "linear" and aggregation == "sum"):
         m, cin, cout = weights.shape
         return kpconv_fused(
             neighbors.detach(), gathered[..., 3:].to(compute_dtype), kernel_pts.float(),
             weights.reshape(m * cin, cout).float(), float(kp_extent),
         )
-    all_w = _influence(
-        _kp_sq_dists(neighbors, kernel_pts), kp_extent, influence, aggregation
-    )
-    return _contract(all_w, gathered[..., 3:], weights, compute_dtype)
+    kp = kernel_pts.float()
+    if kp_offsets is not None:
+        kp = kp + kp_offsets  # (B, Nq, M, 3)
+        diff = neighbors[..., None, :] - kp[:, :, None]  # (B, Nq, K, M, 3)
+        sq = (diff * diff).sum(dim=-1)
+    else:
+        sq = _kp_sq_dists(neighbors, kernel_pts)
+    all_w = _influence(sq, kp_extent, influence, aggregation)
+    out = _contract(all_w, gathered[..., 3:], weights, compute_dtype, kp_modulations)
+    if not return_deform_aux:
+        return out
+    # amin, as jnp.min, splits the cotangent evenly between tied neighbors
+    real = (neighb_inds < s_pts.shape[1])[..., None]
+    min_d2 = torch.where(real, sq, torch.full_like(sq, float("inf"))).amin(dim=-2)
+    min_d2 = torch.where(torch.isfinite(min_d2), min_d2, torch.zeros_like(min_d2))
+    return out, (min_d2, kp.expand(*sq.shape[:2], *kernel_pts.shape))
 
 
 class MaskedBatchNorm(nn.Module):
@@ -213,35 +246,70 @@ class UnaryBlock(nn.Module):
 
 
 class KPConvLayer(nn.Module):
-    """The learned rigid KPConv op: kernel points + (M, Cin, Cout) weights.
+    """The learned KPConv op: kernel points + (M, Cin, Cout) weights.
 
     Kernel points span ``radius`` (the unit disposition times the conv
     radius); ``kp_extent`` sets the influence width. ``use_fused`` sends a
-    call that gets no precomputed influence through the fused kernel.
+    rigid call that gets no precomputed influence through the fused kernel.
+
+    ``deformable`` adds ``offset_conv``, a rigid KPConvLayer of width M·3
+    (M·4 with ``modulated``) that takes the level's cached influence and is
+    never fused, and ``offset_bias``; its output (+ bias) times ``kp_extent``
+    moves the kernel points per query, and with ``modulated`` its last M
+    columns give the modulations 2·sigmoid(·). The deformed conv itself gets
+    no cached influence. Each forward keeps ``deform_aux`` = (min d² /
+    extent², moved kernel points / extent, query mask) for the fitting
+    regularizer, as the reference keeps ``min_d2`` / ``deformed_KP`` on the
+    module.
     """
 
     def __init__(self, in_dim: int, out_dim: int, radius: float,
                  kp_extent: float, num_kernel_points: int = 15,
                  influence: str = "linear", aggregation: str = "sum",
-                 compute_dtype: torch.dtype = torch.float32, use_fused: bool = False):
+                 compute_dtype: torch.dtype = torch.float32, use_fused: bool = False,
+                 deformable: bool = False, modulated: bool = False):
         super().__init__()
         self.use_fused = use_fused
         self.kp_extent = kp_extent
         self.influence = influence
         self.aggregation = aggregation
         self.compute_dtype = compute_dtype
+        self.deformable = deformable
+        self.modulated = modulated
         kp = kernel_point_positions(radius, num_kernel_points)
         self.register_buffer("kernel_pts", torch.from_numpy(kp), persistent=False)
         self.weights = nn.Parameter(torch.zeros(num_kernel_points, in_dim, out_dim))
+        self.deform_aux = None
+        if deformable:
+            width = num_kernel_points * (4 if modulated else 3)
+            self.offset_conv = KPConvLayer(
+                in_dim, width, radius, kp_extent, num_kernel_points,
+                influence, aggregation, compute_dtype,
+            )
+            self.offset_bias = nn.Parameter(torch.zeros(width))
 
-    def forward(self, q_pts, s_pts, neighb_inds, x, precomputed_influence=None):
-        return kpconv_apply(
+    def forward(self, q_pts, s_pts, neighb_inds, x, precomputed_influence=None, q_mask=None):
+        if not self.deformable:
+            return kpconv_apply(
+                q_pts, s_pts, neighb_inds, x, self.kernel_pts, self.weights,
+                self.kp_extent, self.influence, self.aggregation,
+                compute_dtype=self.compute_dtype,
+                precomputed_influence=precomputed_influence,
+                use_fused=self.use_fused,
+            )
+        off = self.offset_conv(q_pts, s_pts, neighb_inds, x, precomputed_influence) + self.offset_bias
+        b, nq = off.shape[:2]
+        m = self.kernel_pts.shape[0]
+        offsets = off[..., : m * 3].reshape(b, nq, m, 3) * self.kp_extent
+        modulations = 2.0 * torch.sigmoid(off[..., m * 3:]) if self.modulated else None
+        out, (min_d2, kp_abs) = kpconv_apply(
             q_pts, s_pts, neighb_inds, x, self.kernel_pts, self.weights,
             self.kp_extent, self.influence, self.aggregation,
             compute_dtype=self.compute_dtype,
-            precomputed_influence=precomputed_influence,
-            use_fused=self.use_fused,
+            kp_offsets=offsets, kp_modulations=modulations, return_deform_aux=True,
         )
+        self.deform_aux = (min_d2 / self.kp_extent**2, kp_abs / self.kp_extent, q_mask)
+        return out
 
 
 def _conv_site(block_name: str, layer: int, pyr):
@@ -251,7 +319,7 @@ def _conv_site(block_name: str, layer: int, pyr):
     return pyr.points[layer], pyr.neighbors[layer], pyr.masks[layer], ("conv", layer)
 
 
-def _kpconv_layer(cfg, in_dim, out_dim, radius):
+def _kpconv_layer(cfg, block_name, in_dim, out_dim, radius):
     cfg.port_option("kpconv_tail")  # every tail form is the einsum contraction here
     return KPConvLayer(
         in_dim, out_dim, radius,
@@ -261,6 +329,8 @@ def _kpconv_layer(cfg, in_dim, out_dim, radius):
         aggregation=cfg.aggregation_mode,
         compute_dtype=cfg.compute_dtype,
         use_fused=cfg.port_option("use_pallas_kpconv"),
+        deformable="deform" in block_name,
+        modulated=cfg.modulated,
     )
 
 
@@ -270,14 +340,14 @@ class SimpleBlock(nn.Module):
     def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
         super().__init__()
         self.block_name, self.layer_ind = block_name, layer_ind
-        self.KPConv = _kpconv_layer(cfg, in_dim, out_dim // 2, radius)
+        self.KPConv = _kpconv_layer(cfg, block_name, in_dim, out_dim // 2, radius)
         self.bn = MaskedBatchNorm(out_dim // 2, cfg.use_batch_norm,
                                   momentum=cfg.batch_norm_momentum)
 
     def forward(self, x, pyr, infl=None):
         q, inds, out_mask, key = _conv_site(self.block_name, self.layer_ind, pyr)
         pi = infl.get(key) if infl is not None else None
-        x = self.KPConv(q, pyr.points[self.layer_ind], inds, x, precomputed_influence=pi)
+        x = self.KPConv(q, pyr.points[self.layer_ind], inds, x, pi, out_mask)
         return F.leaky_relu(self.bn(x, out_mask), 0.1)
 
 
@@ -290,7 +360,7 @@ class ResnetBottleneckBlock(nn.Module):
         mid = out_dim // 4
         bn, mo = cfg.use_batch_norm, cfg.batch_norm_momentum
         self.unary1 = UnaryBlock(in_dim, mid, bn, bn_momentum=mo) if in_dim != mid else None
-        self.KPConv = _kpconv_layer(cfg, mid, mid, radius)
+        self.KPConv = _kpconv_layer(cfg, block_name, mid, mid, radius)
         self.bn_conv = MaskedBatchNorm(mid, bn, momentum=mo)
         self.unary2 = UnaryBlock(mid, out_dim, bn, no_relu=True, bn_momentum=mo)
         self.unary_shortcut = (
@@ -303,7 +373,7 @@ class ResnetBottleneckBlock(nn.Module):
         q, inds, out_mask, key = _conv_site(self.block_name, l, pyr)
         pi = infl.get(key) if infl is not None else None
         h = x if self.unary1 is None else self.unary1(x, pyr.masks[l])
-        h = self.KPConv(q, pyr.points[l], inds, h, precomputed_influence=pi)
+        h = self.KPConv(q, pyr.points[l], inds, h, pi, out_mask)
         h = F.leaky_relu(self.bn_conv(h, out_mask), 0.1)
         h = self.unary2(h, out_mask)
         shortcut = max_pool(x, inds) if "strided" in self.block_name else x
@@ -332,23 +402,27 @@ class MaxPoolBlock(nn.Module):
         return max_pool(x, pyr.pools[self.layer_ind + 1])
 
 
+class GlobalAverageBlock(nn.Module):
+    """Masked mean over the coarsest level → (B, C)."""
+
+    def forward(self, x, pyr):
+        m = pyr.masks[-1].to(x.dtype)[..., None]
+        return (x * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)
+
+
 def block_decider(block_name: str, radius: float, in_dim: int, out_dim: int,
                   layer_ind: int, cfg) -> nn.Module:
     """Instantiate a block by architecture-list name."""
-    if "deform" in block_name:
-        raise NotImplementedError(_DEFORM_TODO)
     if block_name == "unary":
         return UnaryBlock(in_dim, out_dim, cfg.use_batch_norm, bn_momentum=cfg.batch_norm_momentum)
-    if block_name in ("simple", "simple_strided"):
+    if block_name in ("simple", "simple_deformable", "simple_strided", "simple_deformable_strided"):
         return SimpleBlock(block_name, in_dim, out_dim, radius, layer_ind, cfg)
-    if block_name in ("resnetb", "resnetb_strided"):
+    if block_name in ("resnetb", "resnetb_deformable", "resnetb_strided", "resnetb_deformable_strided"):
         return ResnetBottleneckBlock(block_name, in_dim, out_dim, radius, layer_ind, cfg)
     if block_name == "nearest_upsample":
         return NearestUpsampleBlock(layer_ind)
     if block_name in ("max_pool", "max_pool_wide"):
         return MaxPoolBlock(layer_ind)
     if block_name == "global_average":
-        raise NotImplementedError(
-            "global_average (the KPCNN baseline) is not ported yet (ROADMAP queue 1, P7 item 3)"
-        )
+        return GlobalAverageBlock()
     raise ValueError(f"unknown block name in architecture: {block_name!r}")

@@ -1,5 +1,6 @@
-"""KPFCNN trunk built from an ``architecture`` block list
-(``mvkpconv_tpu/models/kpfcnn.py``).
+"""KPFCNN trunk built from an ``architecture`` block list, and the 3D-only
+networks on it (``mvkpconv_tpu/models/kpfcnn.py``): the ``KPFCNN``
+segmentation baseline and the ``KPCNN`` classifier.
 
 The same block list drives the model here and the pyramid budgets
 (ops/pyramid.py). Blocks are registered as ``block_{i}`` like the flax
@@ -174,3 +175,57 @@ class KPFCNNHead(nn.Module):
 
     def forward(self, x, mask):
         return self.head_softmax(self.head_mlp(x, mask), mask)
+
+
+class KPFCNN(nn.Module):
+    """The 3D-only KPConv segmentation baseline: encoder, decoder and head on
+    the level-0 features (B, N0, ``in_features_dim``) → per-point logits
+    (B, N0, num_classes), f32."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        enc, dec, _ = plan_architecture(cfg)
+        self.encoder = KPFCNNEncoder(cfg, enc)
+        self.decoder = KPFCNNDecoder(cfg, dec)
+        self.head = KPFCNNHead(cfg, dec[-1][2])
+
+    @property
+    def encoders(self) -> Tuple[KPFCNNEncoder, ...]:
+        return (self.encoder,)
+
+    def forward(self, features: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+        infl = make_influence_cache(self.cfg, (self.encoder.plan, self.decoder.plan), pyr)
+        x, skips = self.encoder(features.float(), pyr, infl)
+        x = self.decoder(x, skips, pyr, infl)
+        return self.head(x, pyr.masks[0])
+
+
+class KPCNN(nn.Module):
+    """The KPConv classifier: the encoder blocks of the list, which ends in
+    ``global_average``, then the masked mean over the coarsest level,
+    ``head_mlp`` (UnaryBlock to 1024, no BN) and ``head_softmax`` (Linear) →
+    (B, num_classes) logits."""
+
+    def __init__(self, cfg):
+        super().__init__()
+        self.cfg = cfg
+        enc, _, _ = plan_architecture(cfg)
+        if not enc or enc[-1][0] != "global_average":
+            raise ValueError("a KPCNN architecture ends in 'global_average'")
+        self.plan = tuple(enc)
+        for i, (name, in_dim, out_dim, r, layer, _) in enumerate(enc[:-1]):
+            self.add_module(f"block_{i}", B.block_decider(name, r, in_dim, out_dim, layer, cfg))
+        self.global_average = B.GlobalAverageBlock()
+        self.head_mlp = B.UnaryBlock(enc[-1][1], 1024, use_bn=False)
+        self.head_softmax = nn.Linear(1024, cfg.num_classes)
+
+    def forward(self, features: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
+        infl = make_influence_cache(self.cfg, (self.plan,), pyr)
+        x = features.float()
+        for i in range(len(self.plan) - 1):
+            block = getattr(self, f"block_{i}")
+            x = block(x, pyr, infl) if isinstance(
+                block, (B.SimpleBlock, B.ResnetBottleneckBlock)) else block(x, pyr)
+        x = self.head_mlp(self.global_average(x, pyr))
+        return self.head_softmax(x)

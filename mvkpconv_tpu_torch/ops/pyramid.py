@@ -123,6 +123,37 @@ class PyramidSpec:
             return self.deform_pool_neighbors[level]
         return self.pool_neighbors[level]
 
+    @staticmethod
+    def for_architecture(
+        architecture: Sequence[str],
+        num_points0: int,
+        first_subsampling_dl: float = 0.04,
+        conv_radius: float = 2.5,
+        deform_radius: float = 6.0,
+        conv_neighbors: Optional[Tuple[int, ...]] = None,
+        pool_neighbors: Optional[Tuple[int, ...]] = None,
+        subsample_ratio: float = 4.0,
+    ) -> "PyramidSpec":
+        """Budgets derived from a block list: point budgets shrink by
+        ``subsample_ratio`` a level (at least 8), neighbor budgets default
+        to 34, and the deformable levels come from the block names."""
+        levels = num_layers_from_architecture(architecture)
+        pts, n = [], num_points0
+        for _ in range(levels):
+            pts.append(max(int(n), 8))
+            n = n / subsample_ratio
+        conv_flags, pool_flags = deform_flags_from_architecture(architecture)
+        return PyramidSpec(
+            num_points=tuple(pts),
+            first_subsampling_dl=first_subsampling_dl,
+            conv_radius=conv_radius,
+            deform_radius=deform_radius,
+            conv_neighbors=conv_neighbors or DEFAULT_CONV_NEIGHBORS[:levels],
+            pool_neighbors=pool_neighbors or DEFAULT_POOL_NEIGHBORS[: levels - 1],
+            deform_conv_levels=conv_flags,
+            deform_pool_levels=pool_flags,
+        )
+
 
 class Pyramid(NamedTuple):
     """All per-level tensors a KPFCNN forward needs."""

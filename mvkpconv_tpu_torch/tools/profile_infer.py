@@ -1,13 +1,17 @@
 """Where the inference slice's (or the train step's) time goes on one GPU.
 
-    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train] [--fused] [--out DIR]
+    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train] [--fused]
+        [--config bench|deform|baseline] [--out DIR]
 
 At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
 120×160, width 128, bf16, seeded random weights), or with ``--fused`` at the
 same configuration on the fused KPConv path (``use_pallas_kpconv=True``,
 ``influence_cache='none'``: kernel K4 in every conv block, no influence
 cache), it prints one line per hand-written kernel (its device time and
-launches per forward or step) and then one JSON line:
+launches per forward or step) and then one JSON line. ``--config deform``
+takes ``infer.deform_config()`` (blocks 9–13 deformable) and ``--config
+baseline`` ``infer.baseline_config()`` (the 3D-only KPFCNN: no UNet, no
+FeatureAggregation, no lift) in place of the bench configuration:
 
   * ``stage_ms``: device time per forward (or per train step) by stage,
     from CUDA events around the unmodified code, mean of 5 runs after a
@@ -17,7 +21,8 @@ launches per forward or step) and then one JSON line:
     lift gather, the influence cache). ``--train``: the pyramid, the
     forward (the model's submodules as above), the backward (the loss, then
     autograd with every trunk gather's VJP through K3) and the optimizer
-    (value clip and SGD);
+    (value clip and SGD); ``deformable_kpconv``, where the model has
+    deformable layers, is their forward's share, inside ``encoder``;
   * ``device_busy_ms`` and the top kernels by device time, per forward or
     step, from ``torch.profiler`` over 3 runs; ``kernel_sums_ms``: the
     hand-written kernels' device time per forward or step, summed by kernel
@@ -31,8 +36,9 @@ launches per forward or step) and then one JSON line:
     paths.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
-``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``;
-default ``outputs/``, which git ignores).
+``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``
+and ``_deform`` or ``_baseline`` under ``--config``; default ``outputs/``,
+which git ignores).
 """
 
 from __future__ import annotations
@@ -46,9 +52,20 @@ import numpy as np
 import torch
 
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
-from mvkpconv_tpu_torch.infer import batch_to_device, bench_config, fused_config, make_model
+from mvkpconv_tpu_torch.infer import (
+    FUSED_OPTIONS,
+    apply_model,
+    baseline_config,
+    batch_to_device,
+    bench_config,
+    deform_config,
+    make_model,
+)
+from mvkpconv_tpu_torch.models.blocks import KPConvLayer
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.train import make_trainer
+
+CONFIGS = {"bench": bench_config, "deform": deform_config, "baseline": baseline_config}
 
 STAGES = ("net_2d", "feat_aggreg", "encoder", "decoder", "head")
 # the hand-written kernels, by a part of their profiler names
@@ -69,10 +86,14 @@ def _event():
 
 
 def _hook_spans(model, spans):
-    """Record (start, end) events of each stage submodule and of the whole
-    model forward into ``spans``."""
+    """Record (start, end) events of each stage submodule the model has, of
+    each deformable KPConv layer and of the whole model forward into
+    ``spans``."""
     open_ = {}
-    for name, mod in [(n, getattr(model, n)) for n in STAGES] + [("model", model)]:
+    stages = [(n, getattr(model, n)) for n in STAGES if hasattr(model, n)]
+    deform = [(f"deformable_kpconv.{i}", m) for i, m in enumerate(
+        m for m in model.modules() if isinstance(m, KPConvLayer) and m.deformable)]
+    for name, mod in stages + deform + [("model", model)]:
         mod.register_forward_pre_hook(lambda m, a, n=name: open_.__setitem__(n, _event()))
         mod.register_forward_hook(
             lambda m, a, o, n=name: spans.setdefault(n, []).append((open_.pop(n), _event()))
@@ -89,7 +110,7 @@ def inference_runner(cfg, dev, batch, spans):
         t0 = _event()
         pyr = build_pyramid(batch["points"], batch["mask"], spec)
         spans.setdefault("pyramid", []).append((t0, _event()))
-        model(batch, pyr)
+        apply_model(model, batch, pyr)
 
     return run
 
@@ -116,7 +137,11 @@ def train_runner(cfg, dev, batch, spans):
 def stage_ms(spans, train: bool):
     ms = {k: float(np.mean([s.elapsed_time(e) for s, e in v]))
           for k, v in spans.items() if k in STAGES + ("model", "pyramid")}
-    ms["other"] = ms["model"] - sum(ms[n] for n in STAGES)
+    ms["other"] = ms["model"] - sum(ms[n] for n in STAGES if n in ms)
+    deform = [k for k in spans if k.startswith("deformable_kpconv.")]
+    if deform:
+        ms["deformable_kpconv"] = sum(
+            float(np.mean([s.elapsed_time(e) for s, e in spans[k]])) for k in deform)
     if not train:
         ms["forward"] = ms.pop("model") + ms["pyramid"]
         return ms
@@ -173,12 +198,16 @@ def main(argv=None) -> None:
     ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--fused", action="store_true",
                     help="the fused KPConv path (K4, no influence cache)")
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="bench",
+                    help="the bench configuration, its deformable variant or the KPFCNN baseline")
     ap.add_argument("--out", default="outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_infer: needs a CUDA device")
     dev = torch.device("cuda", 0)
-    cfg = fused_config() if args.fused else bench_config()
+    cfg = CONFIGS[args.config]()
+    if args.fused:
+        cfg = cfg.replace(**FUSED_OPTIONS)
     batch = batch_to_device(make_batch(cfg, cfg.batch_num, np.random.RandomState(0)), dev)
     spans = {}
     run = (train_runner if args.train else inference_runner)(cfg, dev, batch, spans)
@@ -203,6 +232,7 @@ def main(argv=None) -> None:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     name = ("profile_train" if args.train else "profile_infer") + ("_fused" if args.fused else "")
+    name += "" if args.config == "bench" else f"_{args.config}"
     (out / f"{name}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60)
     )
@@ -225,7 +255,7 @@ def main(argv=None) -> None:
             row = vjp["by_kind"].get(kind, {"ms": 0.0, "launches": 0})
             print(f"gather_vjp {kind}: {row['ms']:.4f} ms in {row['launches']:g} launches per step")
     print(json.dumps({
-        "card": smi, "mode": "train" if args.train else "inference",
+        "card": smi, "mode": "train" if args.train else "inference", "config": args.config,
         "path": "fused (K4, influence_cache='none')" if args.fused else "default (einsum, prebuilt cache)",
         "stage_ms": ms,
         "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 3e3,

@@ -1,8 +1,9 @@
 """Training entry point: the port's counterpart of ``bench.py``'s train
 step and of ``__graft_entry__.dryrun_multichip``'s step.
 
-``make_trainer`` builds the model with seeded weights, the optimizer with
-the 2D net frozen, and the train step; ``train_steps`` runs it. Usage::
+``make_trainer`` builds the model with seeded weights (an MV-KPConv, or the
+KPFCNN baseline where ``cfg.fusion == 'none'``), the optimizer with the 2D
+net frozen, and the train step; ``train_steps`` runs it. Usage::
 
     cfg = bench_config()
     trainer = make_trainer(cfg, seed=0)   # on the first CUDA device
@@ -12,11 +13,12 @@ the 2D net frozen, and the train step; ``train_steps`` runs it. Usage::
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple
+from typing import Callable, Dict, List, NamedTuple, Union
 
 import torch
 
 from mvkpconv_tpu_torch.infer import make_model
+from mvkpconv_tpu_torch.models.kpfcnn import KPFCNN
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv
 from mvkpconv_tpu_torch.training.optim import make_optimizer
 from mvkpconv_tpu_torch.training.steps import make_train_step
@@ -25,7 +27,7 @@ FROZEN_PREFIXES = ("net_2d",)
 
 
 class Trainer(NamedTuple):
-    model: MVKPConv
+    model: Union[MVKPConv, KPFCNN]
     optimizer: torch.optim.SGD
     step: Callable
 

@@ -4,8 +4,9 @@ jit, this module writes the same initializers out).
 
 Conv, transposed-conv and Dense kernels: LeCun normal (truncated normal,
 variance 1/fan_in, fan_in over the input channels and the window); KPConv
-weights: normal with std sqrt(2 / (Cin·M)); biases zero; BN scale one,
-statistics (0, 1). All draws come from one ``torch.Generator`` on the
+weights (a deformable layer's offset conv too): normal with std
+sqrt(2 / (Cin·M)); biases and a deformable layer's ``offset_bias`` zero;
+BN scale one, statistics (0, 1). All draws come from one ``torch.Generator`` on the
 parameters' device, so a seed fixes the weights.
 """
 
@@ -42,6 +43,8 @@ def init_parameters(model: nn.Module, seed: int) -> nn.Module:
         elif isinstance(mod, KPConvLayer):
             m, cin, _ = mod.weights.shape
             mod.weights.normal_(0.0, math.sqrt(2.0 / (cin * m)), generator=gen)
+            if mod.deformable:
+                mod.offset_bias.zero_()
         elif isinstance(mod, (BatchNorm, MaskedBatchNorm)):
             if hasattr(mod, "weight"):
                 mod.weight.fill_(1.0)

@@ -6,6 +6,12 @@ the backward — every trunk gather's VJP in the mode of
 ``cfg.gather_transpose`` (kernel K3 for the ``banded`` modes) — then the
 clipped SGD update. Batch-norm statistics update in the forward.
 
+The model kind decides what the model is given (JAX ``make_apply_fn``): a
+``KPFCNN`` (``fusion='none'``) the batch's level-0 features, an
+``MVKPConv`` the whole batch. A configuration with deformable blocks adds
+the deformable regularizer to the loss (``losses.deform_regularization``),
+as the JAX step does.
+
 Batch dict (as the JAX step takes it): points (B, N0, 3), mask (B, N0),
 features (B, N0, C), labels (B, N0) in [0, C) or ``ignore_label``, and the
 fusion inputs (images, depth, intrinsics, poses, or their precomputed
@@ -20,25 +26,29 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
+from mvkpconv_tpu_torch.infer import apply_model
 from mvkpconv_tpu_torch.ops.gather import gather_transpose
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
-from mvkpconv_tpu_torch.training.losses import segmentation_cross_entropy
+from mvkpconv_tpu_torch.training.losses import deform_regularization, segmentation_cross_entropy
 
 
 def forward_backward(model: nn.Module, cfg, batch: Dict[str, torch.Tensor]):
-    """Loss and logits of one batch in training mode, with the parameters'
-    ``.grad`` filled by the backward (before any clipping). Returns
-    ``(loss, logits)``, both detached."""
+    """Loss (with the deformable regularizer where the architecture has
+    deformable blocks) and logits of one batch in training mode, with the
+    parameters' ``.grad`` filled by the backward (before any clipping).
+    Returns ``(loss, logits)``, both detached."""
     model.train()
     with torch.no_grad():
         pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
     with gather_transpose(cfg.port_option("gather_transpose")):
-        logits = model(batch, pyr)
+        logits = apply_model(model, batch, pyr)
         loss = segmentation_cross_entropy(
             logits, batch["labels"], batch.get("mask"),
             class_weights=cfg.class_weights, ignore_label=cfg.ignore_label,
             label_smoothing=cfg.label_smoothing, balance=cfg.segloss_balance,
         )
+        if any("deform" in b for b in cfg.architecture):
+            loss = loss + deform_regularization(model, cfg.repulse_extent, cfg.deform_fitting_power)
         loss.backward()
     return loss.detach(), logits.detach()
 
@@ -73,6 +83,6 @@ def make_eval_step(model: nn.Module, cfg) -> Callable:
     def step(batch):
         model.eval()
         pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
-        return torch.softmax(model(batch, pyr), dim=-1)
+        return torch.softmax(apply_model(model, batch, pyr), dim=-1)
 
     return step

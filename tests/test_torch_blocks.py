@@ -354,10 +354,6 @@ def test_fused_branch_is_taken_under_the_jax_conditions_only(monkeypatch):
 
 def test_unported_variants_raise():
     cfg = KPConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="P7"):
-        B.block_decider("resnetb_deformable", 0.1, 16, 32, 0, cfg)
-    with pytest.raises(NotImplementedError, match="P7"):
-        B.block_decider("global_average", 0.1, 16, 32, 0, cfg)
     with pytest.raises(ValueError, match="fusion"):
         MVKPConv(cfg.replace(fusion="none"))
     with pytest.raises(NotImplementedError, match="P7"):
