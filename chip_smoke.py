@@ -104,7 +104,35 @@ Phases, each printed as one JSON line:
      ``deform_lr_factor`` times the learning rate, K3 launches from the
      plan: two gathers a deformable block); full_baseline and
      train_full_baseline, phases 6 and 9 at ``infer.baseline_config()``
-     (no K2 launch).
+     (no K2 launch);
+ 14. train_full_remat, train_full_fused_remat: phase 9 on the default and
+     the fused path with ``remat='blocks'``: K3 still once a trunk gather a
+     step (the backward runs the first forward's graph, and its plans), K4's
+     forward twice a fused block (the recompute), ``wf`` and ``bwd_x`` once;
+     the warm-up step's loss within 1e-5 relative of the run without remat
+     (later steps part by the pyramid's atomic sums, which differ between
+     any two runs) and a lower peak memory;
+ 15. the training entry point, as a user runs it (PyTorch's TF32 defaults):
+     train_scannet_full runs ``tools/train_scannet.main`` at the CLI's
+     default configuration (MV-KPConv early fusion, width 128, B=5,
+     N0=16384, K=34, 5 views of 120x160, f32, the UNet trained) with
+     ``epoch_steps=2, validation_size=10`` for 4 steps on synthetic scenes:
+     ms and data ms of each step (the Trainer's meters, host clock), device
+     busy per step (``torch.profiler``, 3 more steps), peak memory, losses,
+     validation mIoU, points per sphere before padding, the host's sampling
+     time a batch by stage, K1/K2/K3 launches split between the train steps
+     and the validations and held to the plan, the checkpoint files;
+     train_scannet_resume runs the same command to step 6 and holds the
+     restored model and optimizer state to the step-4 checkpoint bit for
+     bit; train_scannet_frozen runs 2 steps from a seeded UNet checkpoint
+     (``--path-2d``) on the fused path (K4 launches held to the plan): the
+     UNet's parameters and statistics unchanged bit for bit, everything else
+     moved; test_models runs the voting test of the run at 0.5 votes
+     (subsampled and full-resolution mIoU finite, K1/K2 per forward, no K3);
+ 16. trainer_parity: 2 ``Trainer`` steps card against CPU at phase 5's
+     configuration with the UNet trained, real sphere batches from one
+     dataset seed, f32, TF32 off: each loss within 1e-5 relative, every
+     parameter and statistic within phase 8's allowance.
 
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
@@ -116,6 +144,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -157,13 +186,14 @@ def device_ms(fn, reps=20):
     ``torch.profiler`` over ``reps`` calls after a warm-up. Unlike
     ``cuda_ms`` it does not read the wrapper's host time where that is longer
     than the kernels (0.05–0.08 ms a call). A profile that recorded no device
-    time at all (it happens now and then) is taken again, up to three times."""
+    time at all (it happens now and then, twice in a row as well) is taken
+    again, up to six times."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    for _ in range(6):
         with torch.profiler.profile(activities=acts, acc_events=True) as prof:
             for _ in range(reps):
                 fn()
@@ -1048,7 +1078,8 @@ def config_label(cfg, what=""):
         label = f"bench.py:106-117{what} as the 3D-only KPFCNN (fusion='none', in_features_dim=2; B=4, N0=16384, K=30, width 128, bf16"
     if any("deform" in b for b in cfg.architecture):
         label += ", blocks 9-13 deformable (their levels' neighbors within deform_radius 6.0)"
-    return label + (", use_pallas_kpconv=True, influence_cache='none'" if runs_k4(cfg) else "") + ")"
+    label += ", use_pallas_kpconv=True, influence_cache='none'" if runs_k4(cfg) else ""
+    return label + (", remat='blocks'" if cfg.remat == "blocks" else "") + ")"
 
 
 def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
@@ -1106,7 +1137,7 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     net_2d = getattr(trainer.model, "net_2d", None)
     frozen = {} if net_2d is None else {k: v.clone() for k, v in net_2d.state_dict().items()}
     start = {n: p.detach().clone() for n, p in trainer.model.named_parameters() if not n.startswith("net_2d.")}
-    train_steps(trainer, batch, 1)  # warm-up (cuDNN autotune, allocator)
+    loss_warmup = float(train_steps(trainer, batch, 1)[0]["loss"])  # warm-up (cuDNN autotune, allocator)
     deformable = bool(deform_layers(trainer.model))
     step_size = {}
     if deformable:
@@ -1166,11 +1197,17 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
     assert launches["radius_topk"] == 13 * steps, launches
     assert launches["pixel_topk"] == (0 if cfg.fusion == "none" else steps), launches
     assert launches["radius_topk_device"] == 26 * steps, launches
-    assert launches["kpconv_fused_fwd"] == launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
+    # under remat='blocks' a block's forward runs again in the backward: K4's
+    # forward twice a fused block; K3 still once a gather (the backward runs
+    # the first forward's graph) with its plans, and wf / bwd_x once
+    fwd_per_step = n_conv * (2 if cfg.remat == "blocks" else 1)
+    assert launches["kpconv_fused_fwd"] == (fwd_per_step * steps if fused else 0), launches
+    assert launches["kpconv_wf"] == (n_conv * steps if fused else 0), launches
     assert launches["kpconv_fused_bwd_x"] == (n_bwd_x * steps if fused else 0), (launches, n_bwd_x)
     row = {
         "phase": phase, "config": config_label(cfg, " train step, banded_bf16"), "steps": steps, "ms_per_step": dt * 1e3, "points_per_s": cfg.batch_num * cfg.num_points[0] / dt,
-        "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]), "launches": launches,
+        "loss_warmup": loss_warmup, "losses": losses, "accuracy_last": float(metrics[-1]["accuracy"]),
+        "launches": launches,
         "trunk_gathers_with_grad": n_gathers, "gather_vjp_row_widths": sorted(seen),
         "gather_vjp_rows": sorted(f"{d}{' round_bf16' if r else ''}" for d, r, _ in handed),
         "conv_blocks": n_conv, "conv_blocks_with_input_grad": n_bwd_x,
@@ -1248,6 +1285,270 @@ def check_deform_and_baselines(dev, batch, smi, small, full_row, train_row):
         "train_full_baseline": run_train_full("train_full_baseline", base, dev, batch, smi,
                                               beside=train_row)[1],
     }
+
+
+# ---- the training entry point (tools/train_scannet.py, tools/test_models.py)
+
+def cli_config():
+    """The configuration ``train_scannet --fusion early`` builds by default:
+    MV-KPConv early fusion, ARCHITECTURE_DEEPER at width 128, B=5 spheres of
+    N0=16384, K=34, 5 views of 120x160, f32."""
+    from mvkpconv_tpu_torch.tools.train_scannet import default_config
+
+    return default_config("early", 66)
+
+
+class LaunchSplit:
+    """Launches of the kernels, split between the Trainer's validations
+    (and final snapshot) and the rest of the run (its train steps), by
+    wrapping ``Trainer._validate_and_checkpoint``; the state each
+    ``maybe_resume`` restored, cloned."""
+
+    def __init__(self):
+        from mvkpconv_tpu_torch.training.trainer import Trainer
+
+        self.cls, self.validate, self.resume = Trainer, Trainer._validate_and_checkpoint, Trainer.maybe_resume
+        self.val = dict.fromkeys(read_launches(), 0)
+        self.val_calls = 0
+        self.restored = []
+        split = self
+
+        def validate(trainer, step):
+            before = read_launches()
+            split.validate(trainer, step)
+            split.val_calls += 1
+            for k, v in read_launches().items():
+                split.val[k] += v - before[k]
+
+        def resume(trainer):
+            split.resume(trainer)
+            split.restored.append(copy.deepcopy(trainer.state_dict()))
+
+        Trainer._validate_and_checkpoint, Trainer.maybe_resume = validate, resume
+
+    def close(self):
+        self.cls._validate_and_checkpoint, self.cls.maybe_resume = self.validate, self.resume
+
+    def steps(self):
+        return {k: v - self.val[k] for k, v in read_launches().items()}
+
+
+def training_log_steps(run):
+    return [int(line.split()[1]) for line in (run / "training.txt").read_text().splitlines()[1:]]
+
+
+def same_state(got, want):
+    """Whether two ``Trainer.state_dict()``s are equal bit for bit."""
+    import torch
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+        if isinstance(a, dict):
+            return isinstance(b, dict) and a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+        return a == b
+
+    return same(got, want)
+
+
+def check_train_scannet(dev, smi, tmp):
+    """The training entry point at full width on the card: ``train_scannet``
+    (4 steps, a validation and a checkpoint at step 2 and at the end), its
+    resume to step 6, the frozen-2D run from a UNet checkpoint, then
+    ``test_models`` on the run. Returns the launches by path."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.spheres import SphereDataset, device_batch
+    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, batch_to_device, make_model
+    from mvkpconv_tpu_torch.models.unet2d import UNetResNet34
+    from mvkpconv_tpu_torch.tools import test_models, train_scannet
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+    from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
+    from mvkpconv_tpu_torch.training.init import init_parameters
+
+    base = cli_config()
+    cfg = base.replace(epoch_steps=2, validation_size=2 * base.batch_num)
+    cfg_path = tmp / "parameters_cli.txt"
+    cfg.save(cfg_path)
+    run = tmp / "run"
+    flags = ["--fusion", "early", "--data", "synthetic:2", "--val-data", "synthetic:1",
+             "--config", str(cfg_path), "--output", str(run)]
+    label = ("train_scannet --fusion early defaults (ARCHITECTURE_DEEPER, width 128, B=5, N0=16384, K=34, "
+             "V=5, 120x160, f32, UNet trained) with epoch_steps=2, validation_size=10")
+    split = LaunchSplit()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = train_scannet.main(flags + ["--steps", "4"])
+        seconds = time.perf_counter() - t0
+        steps_launches, val_launches, val_calls = split.steps(), dict(split.val), split.val_calls
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        meters = trainer.meters.meters
+        losses = list(meters["loss"].values)
+        step_ms = [1e3 * t for t in meters["time"].values]
+        data_ms = [1e3 * t for t in meters["data"].values]
+        vals = [json.loads(line) for line in (run / "scalars.jsonl").read_text().splitlines()]
+        mious = [v["value"] for v in vals if v["tag"] == "val_miou"]
+        ckpts = sorted(p.name for p in (run / "checkpoints").iterdir())
+        assert training_log_steps(run) == [1, 2, 3, 4], training_log_steps(run)
+        assert ckpts == ["ckpt_00000002.pt", "ckpt_00000004.pt", "last_checkpoint", "model_best.pt"], ckpts
+        assert len(losses) == 4 and all(np.isfinite(losses)), losses
+        assert len(mious) == val_calls == 3 and all(np.isfinite(mious)), (mious, val_calls)
+        gathers = trunk_gathers(trainer.model)
+        evals = val_calls * 2  # validation_size // batch_num batches a validation
+        # a step: 13 selections (26 device launches), 1 pixel selection, a K3
+        # sum a trunk gather, a plan a pyramid index tensor at most; an
+        # evaluation forward: the same selections, no K3
+        k1 = 3 * cfg.num_layers - 2
+        assert steps_launches["radius_topk"] == k1 * 4 and val_launches["radius_topk"] == k1 * evals, (
+            steps_launches, val_launches)
+        assert steps_launches["radius_topk_device"] == 2 * k1 * 4, steps_launches
+        assert steps_launches["pixel_topk"] == 4 and val_launches["pixel_topk"] == evals, (steps_launches, val_launches)
+        assert steps_launches["segsum"] == gathers * 4 and val_launches["segsum"] == 0, (steps_launches, gathers)
+        assert 0 < steps_launches["segsum_plan"] <= k1 * 4, steps_launches
+        assert steps_launches["kpconv_fused_fwd"] == 0, steps_launches
+
+        # the spheres those 4 steps took (the dataset replayed from its seed)
+        # and the host's sampling time a batch
+        t1 = time.perf_counter()
+        scenes = load_scenes("synthetic:2", True, cfg.num_views, (cfg.image_height, cfg.image_width))
+        load_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ds = SphereDataset(scenes, trainer.cfg, training=True, seed=0)
+        dataset_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        batches = [ds.sample_batch() for _ in range(4)]
+        sample_ms = (time.perf_counter() - t1) / 4 * 1e3
+        counts = ds.sphere_counts
+        stage_ms = {k: 1e3 * sum(v) / 4 for k, v in ds.stage_times.items()}
+
+        # resume: the same command to step 6
+        trainer2 = train_scannet.main(flags + ["--steps", "6"])
+        assert len(split.restored) == 2, len(split.restored)
+        saved = torch.load(run / "checkpoints" / "ckpt_00000004.pt", map_location="cpu", weights_only=True)
+        resumed = split.restored[1]
+        assert resumed["step"] == saved["step"] == 4, (resumed["step"], saved["step"])
+        assert same_state(resumed["model"], saved["model"]), "resumed model differs from the checkpoint"
+        assert same_state(resumed["optimizer"], saved["optimizer"]), "resumed optimizer differs from the checkpoint"
+        assert training_log_steps(run) == [1, 2, 3, 4, 5, 6], training_log_steps(run)
+        assert trainer2.step == 6
+    finally:
+        split.close()
+    # the device's busy time of a step, on the replayed batches
+    tb = batch_to_device(device_batch(batches[0]), dev)
+    busy_ms = device_ms(lambda: trainer2.train_step(tb), reps=3)
+    emit({"phase": "train_scannet_full", "config": label, "seconds": seconds, "steps": 4,
+          "ms_per_step": step_ms, "data_ms_per_step": data_ms,
+          "ms_per_step_after_first": sum(step_ms[1:]) / 3, "data_ms_after_first": sum(data_ms[1:]) / 3,
+          "device_busy_ms_per_step": busy_ms, "peak_mem_gib": peak, "losses": losses,
+          "losses_finite": bool(all(np.isfinite(losses))), "val_miou": mious,
+          "sphere_counts": counts, "points_per_sphere_budget": cfg.num_points[0],
+          "budget_filled": float(np.mean(np.minimum(counts, cfg.num_points[0]))) / cfg.num_points[0],
+          "host_sample_ms_per_batch": sample_ms, "host_stage_ms_per_batch": stage_ms,
+          "scene_load_s": load_s, "dataset_setup_s": dataset_s,
+          "launches_steps": steps_launches, "launches_validation": val_launches, "validations": val_calls,
+          "launches_per_step": {k: steps_launches[k] / 4 for k in
+                                ("radius_topk", "radius_topk_device", "pixel_topk", "segsum", "segsum_plan")},
+          "trunk_gathers_with_grad": gathers, "checkpoints": ckpts, "card": smi})
+    emit({"phase": "train_scannet_resume", "resumed_at": resumed["step"],
+          "state_equal_bitwise": True, "training_txt_steps": training_log_steps(run),
+          "losses_after_resume": list(trainer2.meters.meters["loss"].values)})
+
+    # ---- the frozen 2D net from a UNet checkpoint (--path-2d), on the fused
+    # KPConv path (--config with use_pallas_kpconv=True, influence_cache='none')
+    unet = init_parameters(UNetResNet34(cfg.num_classes), seed=3)
+    Checkpointer(tmp / "run2d" / "checkpoints").save({"step": 1, "model": unet.state_dict()}, 1)
+    fused_path = tmp / "parameters_cli_fused.txt"
+    cfg.replace(**FUSED_OPTIONS).save(fused_path)
+    frozen_run = tmp / "frozen"
+    reset_launches()
+    frozen = train_scannet.main(["--fusion", "early", "--data", "synthetic:2", "--val-data", "synthetic:1",
+                                 "--config", str(fused_path), "--output", str(frozen_run), "--steps", "2",
+                                 "--path-2d", str(tmp / "run2d")])
+    launches_frozen = read_launches()
+    n_conv, n_bwd_x = conv_blocks(frozen.model)
+    # 2 steps; 2 validations (step 2 and the final one) of 2 batches
+    assert launches_frozen["kpconv_fused_fwd"] == n_conv * (2 + 4), (launches_frozen, n_conv)
+    assert launches_frozen["kpconv_wf"] == n_conv * 2 and launches_frozen["kpconv_fused_bwd_x"] == n_bwd_x * 2, (
+        launches_frozen, n_bwd_x)
+    assert launches_frozen["radius_topk"] == k1 * 6 and launches_frozen["pixel_topk"] == 6, launches_frozen
+    fresh = make_model(cfg, dev, seed=0)
+    start = {n: p for n, p in fresh.named_parameters() if not n.startswith("net_2d.")}
+    moved = [n for n, p in frozen.model.named_parameters() if n in start and not torch.equal(p, start[n])]
+    got_2d = frozen.model.net_2d.state_dict()
+    assert frozen.model.freeze_2d and frozen.step == 2
+    assert all(torch.equal(v, got_2d[k].cpu()) for k, v in unet.state_dict().items()), "net_2d moved"
+    assert len(moved) == len(start), f"{len(start) - len(moved)} parameters outside net_2d did not move"
+    emit({"phase": "train_scannet_frozen", "config": "the same, use_pallas_kpconv=True, influence_cache='none', "
+          "--path-2d (a seeded UNet checkpoint)", "steps": frozen.step, "net_2d_equal_bitwise": True,
+          "params_moved": len(moved), "params_outside_net_2d": len(start),
+          "losses": list(frozen.meters.meters["loss"].values), "launches": launches_frozen})
+
+    # ---- the voting test of the run
+    reset_launches()
+    t0 = time.perf_counter()
+    ev, full = test_models.main(["--run", str(run), "--data", "synthetic:1", "--votes", "0.5"])
+    seconds = time.perf_counter() - t0
+    launches_test = read_launches()
+    forwards = launches_test["pixel_topk"]
+    assert np.isfinite(ev.miou) and np.isfinite(full.miou), (ev.miou, full.miou)
+    assert forwards > 0 and launches_test["radius_topk"] == k1 * forwards, launches_test
+    assert launches_test["segsum"] == launches_test["segsum_plan"] == 0, launches_test
+    emit({"phase": "test_models", "votes": 0.5, "seconds": seconds, "forwards": forwards,
+          "miou_subsampled": ev.miou, "miou_full_resolution": full.miou,
+          "oa_full_resolution": full.overall_accuracy, "launches": launches_test})
+    return {"train_scannet": steps_launches, "train_scannet_validation": val_launches,
+            "train_scannet_frozen_fused": launches_frozen, "test_models": launches_test}
+
+
+def check_trainer_parity(dev, small, tmp):
+    """2 ``Trainer`` steps on the card (kernels) against the CPU (plain
+    versions): ``small``'s configuration with the UNet trained end to end,
+    the same seeded weights and the same ``SphereDataset`` seed, f32, TF32
+    off, gather VJP 'banded'. Each step's loss within 1e-5 relative; every
+    parameter and statistic after the 2 steps within rtol 1e-3, atol
+    1e-5·(the largest |param|)."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.spheres import SphereDataset, device_batch
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+    from mvkpconv_tpu_torch.train import make_trainer
+    from mvkpconv_tpu_torch.training.trainer import Trainer
+
+    cfg = small.replace(gather_transpose="banded", epoch_steps=100)
+    scenes = load_scenes("synthetic:1", True, cfg.num_views, (cfg.image_height, cfg.image_width))
+    sides = {}
+    for name, device, seed in (("cpu", "cpu", 1), ("card", dev, 2)):
+        setup = make_trainer(cfg, device, seed=seed, freeze_2d=False)
+        if name == "card":
+            setup.model.load_state_dict(sides["cpu"][1])
+        start = copy.deepcopy(setup.model.state_dict())
+        ds = SphereDataset(scenes, cfg, training=True, seed=0)
+        trainer = Trainer(setup.step, setup.model, setup.optimizer, str(tmp / f"parity_{name}"), cfg)
+        reset_launches()
+        trainer.fit((device_batch(b) for b in ds.batches()), max_steps=2)
+        sides[name] = (trainer, start, read_launches(), ds.sphere_counts[:2 * cfg.batch_num])
+    cpu, card = sides["cpu"][0], sides["card"][0]
+    losses = {k: list(t.meters.meters["loss"].values) for k, t in (("cpu", cpu), ("card", card))}
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+    want, got = cpu.model.state_dict(), card.model.state_dict()
+    atol = TRAIN_PARAM_ATOL_REL * max(float(v.abs().max()) for k, v in want.items() if v.is_floating_point())
+    over = {k: float(((got[k].cpu() - v).abs() / (TRAIN_PARAM_RTOL * v.abs() + atol)).max())
+            for k, v in want.items() if v.is_floating_point()}
+    outside = {k: r for k, r in over.items() if r > 1.0}
+    worst = max(over, key=over.get)
+    emit({"phase": "trainer_parity", "config": f"ARCHITECTURE_DEEPER, N0={cfg.num_points[0]}, width "
+          f"{cfg.first_features_dim}, {cfg.num_views} views {cfg.image_height}x{cfg.image_width}, B={cfg.batch_num} "
+          "real spheres, f32, banded, UNet trained", "losses_card": losses["card"], "losses_cpu": losses["cpu"],
+          "loss_rel_err": loss_rel, "sphere_counts": sides["cpu"][3],
+          "state_err_over_allowance": over[worst], "worst": worst, "outside": outside,
+          "tensors": len(over), "launches_card": sides["card"][2]})
+    assert len(loss_rel) == 2 and max(loss_rel) <= TRAIN_LOSS_REL, "card/CPU Trainer losses disagree"
+    assert not outside, "card/CPU Trainer states disagree"
 
 
 def main() -> int:
@@ -1405,8 +1706,33 @@ def main() -> int:
 
     # ---- deformable MV-KPConv, the KPFCNN and KPCNN baselines ----
     other_paths = check_deform_and_baselines(dev, batch, smi, small, full_row, train_row)
+    # ---- remat='blocks' at full width, beside the same steps without it
+    remat_paths = {}
+    for name, rcfg, beside in (("train_full_remat", cfg, train_row),
+                               ("train_full_fused_remat", fused, fused_train_row)):
+        row, remat_paths[name] = run_train_full(name, rcfg.replace(remat="blocks"), dev, batch, smi, beside=beside)
+        # the first step (the warm-up) from the same weights; later steps
+        # part by more than remat would move them: the pyramid's voxel
+        # barycenters are sums by scatter_add_'s atomics, so two runs of one
+        # configuration differ in the last bits of every level above 0
+        # (on the CPU the two are equal bit for bit: tests/test_torch_trainer.py)
+        rel = abs(row["loss_warmup"] - beside["loss_warmup"]) / abs(beside["loss_warmup"])
+        emit({"phase": name + "_losses", "loss_warmup": row["loss_warmup"],
+              "loss_warmup_without": beside["loss_warmup"], "rel_diff": rel, "losses": row["losses"],
+              "losses_without": beside["losses"], "peak_mem_gib": row["peak_mem_gib"],
+              "peak_mem_gib_without": beside["peak_mem_gib"]})
+        assert rel <= TRAIN_LOSS_REL, "remat='blocks' changed the loss"
+        assert row["peak_mem_gib"] < beside["peak_mem_gib"], "remat='blocks' kept as much memory"
+
+    # ---- the training entry point: train_scannet, resume, frozen 2D, test_models,
+    # run as a user runs them: PyTorch's TF32 defaults (cuDNN on, matmul off)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.backends.cudnn.allow_tf32 = True
+        entry_paths = check_train_scannet(dev, smi, Path(tmp))
+        torch.backends.cudnn.allow_tf32 = False
+        check_trainer_parity(dev, small, Path(tmp))
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
-               "train_full_fused": fused_train_launches, **other_paths}
+               "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths}
 
     def path_launches(*names):
         """Each full-width run's launches of a kernel, over its forwards or steps."""

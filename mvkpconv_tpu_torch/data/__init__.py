@@ -1,1 +1,2 @@
-"""Host-side data helpers of the port (numpy only)."""
+"""Host-side data helpers of the port (numpy only): scene synthesis, sphere
+sampling, feature assembly, augmentation, prefetch."""

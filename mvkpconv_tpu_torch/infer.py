@@ -88,11 +88,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def make_model(cfg, device=None, seed: int = 0) -> Union[MVKPConv, KPFCNN]:
-    """An MV-KPConv, or a KPFCNN where ``cfg.fusion == 'none'``, in eval
-    mode with weights drawn from ``seed``, on ``device`` (default: the first
-    CUDA device; raises without one)."""
-    model = (KPFCNN(cfg) if cfg.fusion == "none" else MVKPConv(cfg)).to(resolve_device(device))
+def make_model(cfg, device=None, seed: int = 0, freeze_2d: bool = True) -> Union[MVKPConv, KPFCNN]:
+    """An MV-KPConv (its UNet frozen unless ``freeze_2d=False``), or a KPFCNN
+    where ``cfg.fusion == 'none'``, in eval mode with weights drawn from
+    ``seed``, on ``device`` (default: the first CUDA device; raises without
+    one)."""
+    model = KPFCNN(cfg) if cfg.fusion == "none" else MVKPConv(cfg, freeze_2d=freeze_2d)
+    model = model.to(resolve_device(device))
     init_parameters(model, seed)
     return model.eval()
 

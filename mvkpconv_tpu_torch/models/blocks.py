@@ -18,6 +18,17 @@ Blocks read ``self.training``: batch norm takes the masked batch statistics
 in training mode. Every feature gather goes through ``group_points``, whose
 backward is the gather-transpose mode in scope at the forward.
 
+With ``cfg.remat == 'blocks'`` each rigid conv block (``simple*``,
+``resnetb*``) runs under ``torch.utils.checkpoint`` in training: its
+internals (the gathered (B, Nq, K, C) neighbor features, the contraction)
+are recomputed in the backward instead of kept, as the JAX package wraps
+the same blocks in ``nn.remat``. The recompute does not update the BN
+running statistics again, so they move once a step as with flax's
+functional collections. It only regenerates saved tensors: the backward
+runs the graph of the first forward, so each gather's VJP keeps the mode
+and the K3 plans it recorded (K3 launches once a gather either way; a
+fused block's K4 forward launches twice).
+
 Deformable blocks (``*_deformable*`` names) predict per-query kernel point
 offsets (and, with ``cfg.modulated``, per-kernel-point modulations) with a
 rigid offset conv, then convolve with the deformed kernel points; each
@@ -27,10 +38,13 @@ deformable ``KPConvLayer`` keeps what the fitting regularizer needs
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
@@ -184,6 +198,20 @@ def kpconv_apply(
     return out, (min_d2, kp.expand(*sq.shape[:2], *kernel_pts.shape))
 
 
+# False while a checkpointed block recomputes its forward in the backward
+_BN_UPDATES: contextvars.ContextVar[bool] = contextvars.ContextVar("bn_updates", default=True)
+
+
+@contextlib.contextmanager
+def _recompute():
+    """The recompute of a checkpointed block: no running-statistics update."""
+    token = _BN_UPDATES.set(False)
+    try:
+        yield
+    finally:
+        _BN_UPDATES.reset(token)
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm over valid points only: ``(x - mean) * rsqrt(var + eps) *
     scale + bias`` in f32. With ``use_bn=False`` it is a bias only.
@@ -194,7 +222,7 @@ class MaskedBatchNorm(nn.Module):
     ``mask`` is None), lets gradients flow through them, and updates the
     running statistics as ``ra ← (1 − m)·ra + m·batch`` with the
     reference's torch-style momentum m = ``cfg.batch_norm_momentum``
-    (0.02)."""
+    (0.02), except in a checkpointed block's recompute."""
 
     def __init__(self, num_features: int, use_bn: bool = True, epsilon: float = 1e-5,
                  momentum: float = 0.02):
@@ -221,10 +249,11 @@ class MaskedBatchNorm(nn.Module):
                 count = m.sum().clamp(min=1.0)
                 mean = (x * m).sum(dims) / count
                 var = (((x - mean) * m) ** 2).sum(dims) / count
-            with torch.no_grad():
-                mo = self.momentum
-                self.running_mean.mul_(1.0 - mo).add_(mo * mean)
-                self.running_var.mul_(1.0 - mo).add_(mo * var)
+            if _BN_UPDATES.get():
+                with torch.no_grad():
+                    mo = self.momentum
+                    self.running_mean.mul_(1.0 - mo).add_(mo * mean)
+                    self.running_var.mul_(1.0 - mo).add_(mo * var)
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.epsilon) * self.weight + self.bias
@@ -334,29 +363,46 @@ def _kpconv_layer(cfg, block_name, in_dim, out_dim, radius):
     )
 
 
-class SimpleBlock(nn.Module):
+class _ConvBlock(nn.Module):
+    """A block around one KPConv layer; with ``cfg.remat == 'blocks'`` a
+    rigid one runs ``_forward`` under ``torch.utils.checkpoint`` when a
+    gradient is recorded."""
+
+    def __init__(self, block_name, layer_ind, cfg):
+        super().__init__()
+        self.block_name, self.layer_ind = block_name, layer_ind
+        self.remat = cfg.port_option("remat") == "blocks" and "deform" not in block_name
+
+    def forward(self, x, pyr, infl=None):
+        if not (self.remat and torch.is_grad_enabled()):
+            return self._forward(x, pyr, infl)
+        return torch.utils.checkpoint.checkpoint(
+            self._forward, x, pyr, infl, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), _recompute()),
+        )
+
+
+class SimpleBlock(_ConvBlock):
     """KPConv → BN → LeakyReLU, output out_dim // 2."""
 
     def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
-        super().__init__()
-        self.block_name, self.layer_ind = block_name, layer_ind
+        super().__init__(block_name, layer_ind, cfg)
         self.KPConv = _kpconv_layer(cfg, block_name, in_dim, out_dim // 2, radius)
         self.bn = MaskedBatchNorm(out_dim // 2, cfg.use_batch_norm,
                                   momentum=cfg.batch_norm_momentum)
 
-    def forward(self, x, pyr, infl=None):
+    def _forward(self, x, pyr, infl=None):
         q, inds, out_mask, key = _conv_site(self.block_name, self.layer_ind, pyr)
         pi = infl.get(key) if infl is not None else None
         x = self.KPConv(q, pyr.points[self.layer_ind], inds, x, pi, out_mask)
         return F.leaky_relu(self.bn(x, out_mask), 0.1)
 
 
-class ResnetBottleneckBlock(nn.Module):
+class ResnetBottleneckBlock(_ConvBlock):
     """unary↓4 → KPConv → unary↑ (+ max-pooled shortcut on strided blocks)."""
 
     def __init__(self, block_name, in_dim, out_dim, radius, layer_ind, cfg):
-        super().__init__()
-        self.block_name, self.layer_ind = block_name, layer_ind
+        super().__init__(block_name, layer_ind, cfg)
         mid = out_dim // 4
         bn, mo = cfg.use_batch_norm, cfg.batch_norm_momentum
         self.unary1 = UnaryBlock(in_dim, mid, bn, bn_momentum=mo) if in_dim != mid else None
@@ -368,7 +414,7 @@ class ResnetBottleneckBlock(nn.Module):
             if in_dim != out_dim else None
         )
 
-    def forward(self, x, pyr, infl=None):
+    def _forward(self, x, pyr, infl=None):
         l = self.layer_ind
         q, inds, out_mask, key = _conv_site(self.block_name, l, pyr)
         pi = infl.get(key) if infl is not None else None

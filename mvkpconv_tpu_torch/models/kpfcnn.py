@@ -21,7 +21,8 @@ from mvkpconv_tpu_torch.ops.pyramid import Pyramid
 
 
 def plan_architecture(cfg) -> Tuple[list, list, list]:
-    """Dims/radii/levels of every block.
+    """Dims/radii/levels of every block (``in_dim`` the width a block is
+    given: the port builds its layers from it).
 
     Returns (encoder_plan, decoder_plan, skip_dims); each plan entry is
     ``(block_name, in_dim, out_dim, radius, layer_ind, concat_skip)``.
@@ -53,7 +54,11 @@ def plan_architecture(cfg) -> Tuple[list, list, list]:
         if concat:
             in_dim += skip_dims[layer]
         decoder.append((block, in_dim, out_dim, r, layer, concat))
-        in_dim = out_dim
+        # an upsample keeps its input's width; the JAX package writes
+        # ``out_dim`` here, which its Dense layers never read (flax infers
+        # their input width). The two agree unless the encoder ends in a
+        # strided block, whose doubled ``out_dim`` no block takes up.
+        in_dim = in_dim if "upsample" in block else out_dim
         if "upsample" in block:
             layer -= 1
             r *= 0.5

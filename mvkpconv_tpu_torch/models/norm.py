@@ -3,6 +3,9 @@
 Eval: flax computes ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
 float32 (the statistics are f32, so a bf16 input promotes) and casts the
 result to the layer's ``dtype``, or leaves it f32 when ``dtype`` is None.
+``f32_in_train`` leaves the result f32 in training mode whatever ``dtype``
+is: the JAX UNet builds its BN with ``dtype=None`` under train
+(``mvkpconv_tpu/models/unet2d.py:_bn``).
 
 Train: the statistics are taken over every axis but the channel, with no
 mask, reduced in f32, the variance in flax's fast biased form
@@ -33,9 +36,11 @@ class BatchNorm(nn.Module):
         dtype: Optional[torch.dtype] = None,
         channel_axis: int = -1,
         epsilon: float = 1e-5,
+        f32_in_train: bool = False,
     ):
         super().__init__()
         self.out_dtype = dtype
+        self.f32_in_train = f32_in_train
         self.channel_axis = channel_axis
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(num_features))
@@ -60,4 +65,6 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.epsilon) * self.weight
         y = (xf - mean.view(shape)) * mul.view(shape)
         y = y + self.bias.view(shape)
-        return y if self.out_dtype is None else y.to(self.out_dtype)
+        if self.out_dtype is None or (self.training and self.f32_in_train):
+            return y
+        return y.to(self.out_dtype)

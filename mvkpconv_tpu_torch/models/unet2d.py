@@ -3,9 +3,13 @@
 Takes and returns channel-last images like the JAX model — (B, H, W, 3) in,
 {'seg_logit': (B, H, W, num_classes), 'feature': (B, H, W, 64)} out — and
 runs NCHW inside. The input is zero-padded to a multiple of 16 and the
-output cropped back. Convolutions run in ``dtype``; so does BN at eval
-(computed in f32, cast to ``dtype``, as flax does). The 1×1 ``logit`` conv
-has no dtype in flax and runs in f32. Submodule names are the flax scopes.
+output cropped back. Convolutions cast their input and weights to ``dtype``
+and run there, as flax's ``nn.Conv(dtype=...)`` does. BN computes in f32 and
+casts its output to ``dtype`` at eval; in training mode it returns f32
+(the JAX UNet's ``_bn``: ``dtype=None if train``), so residual sums, skips
+and the ``feature`` output are f32 when the UNet trains. The 1×1 ``logit``
+conv has no dtype in flax and runs in f32. Submodule names are the flax
+scopes.
 """
 
 from __future__ import annotations
@@ -20,31 +24,41 @@ RESNET34_LAYERS = ((64, 3), (128, 4), (256, 6), (512, 3))
 
 
 class Conv2d(nn.Conv2d):
-    """Conv whose f32 parameters are cast to the input's dtype at the call,
-    as flax casts its kernel to the layer dtype."""
+    """Conv that casts its input and its f32 parameters to ``dtype`` at the
+    call, as flax casts both to the layer dtype."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """Transposed conv with the same call-time cast. The weight is torch's
     (in, out, kh, kw); ``convert.py`` flips flax's spatial axes into it."""
 
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
     def forward(self, x):
+        dt = self.compute_dtype
         return F.conv_transpose2d(
-            x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.stride,
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
             self.padding, self.output_padding, self.groups, self.dilation,
         )
 
 
-def _conv(cin, cout, k, stride=1, padding=0, bias=False):
-    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias)
+def _conv(cin, cout, k, stride=1, padding=0, bias=False, dtype=torch.float32):
+    return Conv2d(cin, cout, k, stride=stride, padding=padding, bias=bias, dtype=dtype)
 
 
 def _bn(c, dtype):
-    return BatchNorm(c, dtype=dtype, channel_axis=1)
+    return BatchNorm(c, dtype=dtype, channel_axis=1, f32_in_train=True)
 
 
 class BasicBlock(nn.Module):
@@ -53,12 +67,12 @@ class BasicBlock(nn.Module):
     def __init__(self, in_filters: int, filters: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(in_filters, filters, 3, stride, 1)
+        self.conv1 = _conv(in_filters, filters, 3, stride, 1, dtype=dtype)
         self.bn1 = _bn(filters, dtype)
-        self.conv2 = _conv(filters, filters, 3, 1, 1)
+        self.conv2 = _conv(filters, filters, 3, 1, 1, dtype=dtype)
         self.bn2 = _bn(filters, dtype)
         if stride != 1 or in_filters != filters:
-            self.proj = _conv(in_filters, filters, 1, stride)
+            self.proj = _conv(in_filters, filters, 1, stride, dtype=dtype)
             self.proj_bn = _bn(filters, dtype)
         else:
             self.proj = self.proj_bn = None
@@ -75,7 +89,7 @@ class _DeconvBlock(nn.Module):
 
     def __init__(self, cin, filters, dtype):
         super().__init__()
-        self.deconv = ConvTranspose2d(cin, filters, 2, stride=2)
+        self.deconv = ConvTranspose2d(cin, filters, 2, stride=2, dtype=dtype)
         self.bn = _bn(filters, dtype)
 
     def forward(self, x):
@@ -85,7 +99,7 @@ class _DeconvBlock(nn.Module):
 class _ConvBlock(nn.Module):
     def __init__(self, cin, filters, dtype):
         super().__init__()
-        self.conv = _conv(cin, filters, 3, 1, 1)
+        self.conv = _conv(cin, filters, 3, 1, 1, dtype=dtype)
         self.bn = _bn(filters, dtype)
 
     def forward(self, x):
@@ -97,8 +111,7 @@ class UNetResNet34(nn.Module):
 
     def __init__(self, num_classes: int = 20, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dtype = dtype
-        self.encoder0 = _conv(3, 64, 7, 1, 3)
+        self.encoder0 = _conv(3, 64, 7, 1, 3, dtype=dtype)
         self.bn0 = _bn(64, dtype)
         cin = 64
         for stage, (filters, depth) in enumerate(RESNET34_LAYERS):
@@ -117,7 +130,7 @@ class UNetResNet34(nn.Module):
         h, w = image.shape[1], image.shape[2]
         pad_h, pad_w = (-h) % 16, (-w) % 16
         x = image.permute(0, 3, 1, 2)
-        x = F.pad(x, (0, pad_w, 0, pad_h)).to(self.dtype)
+        x = F.pad(x, (0, pad_w, 0, pad_h))
         x = F.relu(self.bn0(self.encoder0(x)))
         skips = [x]  # full res, 64ch
         x = F.max_pool2d(x, 3, stride=2, padding=1)
@@ -131,7 +144,7 @@ class UNetResNet34(nn.Module):
             x = torch.cat([x, skips[3 - stage]], dim=1)
             x = getattr(self, f"decoder{3 - stage}")(x)
         x = x[:, :, :h, :w]
-        seg_logit = self.logit(x.float())
+        seg_logit = self.logit(x)
         return {
             "seg_logit": seg_logit.permute(0, 2, 3, 1),
             "feature": x.permute(0, 2, 3, 1),

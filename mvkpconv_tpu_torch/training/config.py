@@ -78,7 +78,12 @@ _PORT_PATHS = {
         "scatter": "scatter", "sorted": "banded", "window": "banded",
         "banded": "banded", "banded_bf16": "banded_bf16",
     },
+    # per-block recompute in the backward (models/blocks.py, torch.utils.checkpoint)
+    "remat": {"none": "none", "blocks": "blocks"},
 }
+# fields where the JAX package takes any value it does not name as this one
+# (it tests ``remat == 'blocks'`` alone); the port warns and does the same
+_OTHER_VALUES = {"remat": "none"}
 # values that name the port's path without a change of strategy
 _NATIVE = {
     "neighbor_method": ("binmin",),
@@ -87,6 +92,7 @@ _NATIVE = {
     "use_pallas_kpconv": (False, True),
     "influence_cache": ("prebuilt", "none"),
     "gather_transpose": ("scatter", "banded", "banded_bf16"),
+    "remat": ("none", "blocks"),
 }
 _WARNED = set()
 
@@ -268,6 +274,8 @@ class KPConfig:
         configured value names a TPU-only strategy."""
         value = getattr(self, field)
         paths = _PORT_PATHS[field]
+        if value not in paths and field in _OTHER_VALUES:
+            paths = {**paths, value: _OTHER_VALUES[field]}
         if value not in paths:
             raise ValueError(f"unknown {field} {value!r}")
         if value not in _NATIVE[field] and (field, value) not in _WARNED:

@@ -8,7 +8,9 @@ frozen: set_to_zero})`` as ``torch.optim.SGD``.
     (``optax.trace``: buf ← g + μ·buf, p ← p − lr·buf);
   * a per-step staircase decay, lr = ``cfg.learning_rate`` ·
     ``cfg.lr_decay`` ** (count // ``cfg.epoch_steps``), count = 0 at the
-    first update (``optax.exponential_decay(staircase=True)``);
+    first update (``optax.exponential_decay(staircase=True)``); the count
+    is kept in each parameter group, so the optimizer's ``state_dict``
+    carries it and a resumed run goes on with its schedule;
   * parameters under ``frozen_prefixes`` are left out, so never updated;
   * deformable-offset parameters (``offset_conv`` / ``offset_bias``) in a
     group at ``cfg.deform_lr_factor`` × lr.
@@ -16,7 +18,6 @@ frozen: set_to_zero})`` as ``torch.optim.SGD``.
 
 from __future__ import annotations
 
-import itertools
 from typing import Sequence
 
 import torch
@@ -48,15 +49,14 @@ def make_optimizer(model: nn.Module, cfg, frozen_prefixes: Sequence[str] = ()) -
             groups[label].append(p)
     factors = {"train": 1.0, "deform": cfg.deform_lr_factor}
     sgd = torch.optim.SGD(
-        [{"params": ps, "lr_factor": factors[k]} for k, ps in groups.items() if ps],
+        [{"params": ps, "lr_factor": factors[k], "count": 0} for k, ps in groups.items() if ps],
         lr=cfg.learning_rate, momentum=cfg.momentum,
     )
-    count = itertools.count()
 
     def before_step(opt, args, kwargs):
-        lr = learning_rate(cfg, next(count))
         for group in opt.param_groups:
-            group["lr"] = lr * group["lr_factor"]
+            group["lr"] = learning_rate(cfg, group["count"]) * group["lr_factor"]
+            group["count"] += 1
         nn.utils.clip_grad_value_([p for g in opt.param_groups for p in g["params"]],
                                   cfg.grad_clip_value)
 
