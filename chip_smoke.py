@@ -134,6 +134,49 @@ Phases, each printed as one JSON line:
      dataset seed, f32, TF32 off: each loss within 1e-5 relative, every
      parameter and statistic within phase 8's allowance.
 
+ 17. the MVPNet path's kernels and index ops (run after phase 7):
+     k2_mvpnet_float32, K2 at ``MVPNet3D``'s selection (4
+     chunks of 8192 points from ``ChunkDataset``, 3 views of 120x160,
+     window 9, k = 3, f32 candidates) against its plain version, timed;
+     k2_precompute_first, k2_precompute_padded_tail: K2 at
+     ``precompute_2d``'s inputs (one scene's 24 frames of 120x160, window
+     7, a 4,096-point chunk timed, and the last chunk, padded with points
+     at the origin);
+     pn2_index_ops, the FPS, ball query and 3-NN of one PN2SSG forward on
+     those points, each call timed (the FPS is an eager host loop);
+     k3_pn2_sa0, k3_pn2_fp3, k3_pn2_padded: K3 held like phase 7 at the
+     SA0 feature gather, the FP3 interpolation gather and a ball query
+     whose rows mostly repeat their centroid, f32, bf16 and rounded rows,
+     the call that builds its plan (as every PN2 gather VJP does) beside
+     the sum given one;
+ 18. the mvpnet fork's workflow, as a user runs it (PyTorch's TF32
+     defaults): train_2d_full (``tools/train_2d.main`` at its defaults,
+     UNet-ResNet34, B=8 frames of 120x160, lr 5e-3, f32: 3 steps, the
+     full-frame validation sweep, checkpoints), then ``tools/test_2d`` on
+     the run reproducing its last ``val_miou`` within 1e-6;
+     train_mvpnet_full (``tools/train_mvpnet.main`` at its defaults: B=4
+     chunks of 8192 points, 3 views of 120x160, PN2SSG at the published
+     widths, the UNet frozen, f32: 3 steps, the 4-batch validation, a
+     checkpoint; ms and data ms a step, device busy a step, peak memory,
+     the index ops' ms; K2 once and K3 8 sums with 8 plans a step; the
+     frozen ``net_2d`` bit-equal to its seeded weights, every other tensor
+     moved); test_mvpnet (sliding chunks at stride 0.5 over one scene:
+     chunks, seconds, coverage; K2 once a forward); train_pn2_full
+     (``--no-images``: K3 7 sums a step, no K2); precompute_2d (one scene
+     from the 2D run, 4,096-point chunks: K2 once a chunk, finite features
+     of shape (N, 64); K2 launched at exactly the shapes phase 17 held);
+ 19. parity_mvpnet, parity_pn2, train_parity_mvpnet, train_parity_pn2:
+     MVPNet3D and PN2SSG on the card against the CPU, f32, TF32 off, 2
+     chunks of 1024 points, 3 views of 24x32, PN2SSG's centroids cut to
+     (256, 64, 16, 4), dropout 0: the eval logits within 1e-4·max|logit|,
+     3 train steps ('banded') each from the CPU's state: the loss within
+     1e-5, the BN statistics within phase 8's allowance, the frozen net_2d
+     bit-equal, each trained tensor's update within 0.25 of the CPU's norm
+     of it (a max over neighbors flips at rounding: see
+     ``check_mvpnet_parity``), the launches held to the plan; then two
+     planted faults on the card's step 1 (the smallest tensor's gradient
+     zeroed, the backward's first K3 sum zeroed) must fail that check.
+
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -405,10 +448,11 @@ def check_k1_adversarial(p0, radius, k, results):
     check_k1("k1_adv_ns_below_k_k1", some, p0[:, 5:6].contiguous(), 40 * radius, 1, results, timed=False)
 
 
-def check_k2(name, points, image_xyz, iu0, iv0, window, k, results, timed=True):
+def check_k2(name, points, image_xyz, iu0, iv0, window, k, results, timed=True, **extra):
     """K2 against its plain version: equal indices, or rows that differ only
     where the selected d² tie within 2⁻²⁰ relative; with ``timed`` also the
-    kernel's and the plain version's times and the bound."""
+    kernel's and the plain version's times and the bound. ``extra`` goes on
+    the row."""
     import torch
     from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
 
@@ -432,7 +476,7 @@ def check_k2(name, points, image_xyz, iu0, iv0, window, k, results, timed=True):
         "phase": name, "b": b, "n": points.shape[1], "views": image_xyz.shape[1],
         "hw": list(image_xyz.shape[2:4]), "window": window, "k": k,
         "dtype": str(image_xyz.dtype).replace("torch.", ""),
-        "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs,
+        "rows_differ": int(differ.sum()), "max_d2_gap_rel": gap, "max_d2_gap": gap_abs, **extra,
     }
     if not timed:
         emit(row)
@@ -1551,6 +1595,486 @@ def check_trainer_parity(dev, small, tmp):
     assert not outside, "card/CPU Trainer states disagree"
 
 
+# ---- the mvpnet fork's workflow (tools/train_2d, test_2d, train_mvpnet,
+# test_mvpnet, precompute_2d): K2 and K3 at the shapes the MVPNet path gives them
+
+PN2_LEVELS = ((2048, 0.1), (512, 0.2), (128, 0.4), (32, 0.8))  # PN2SSG's centroids and radii
+
+
+def chunk_scenes(num_views, hw):
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+
+    return load_scenes("synthetic:2", True, num_views, hw)
+
+
+def mvpnet_batch(dev, scenes, b=4, n=8192, num_views=3, seed=0):
+    """A ``ChunkDataset`` batch as ``train_mvpnet`` hands it to its step (its
+    defaults: 4 chunks of 8192 points, 3 views), on ``dev``."""
+    from mvkpconv_tpu_torch.data.chunks import ChunkDataset
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.tools.train_mvpnet import chunk_batch
+
+    ds = ChunkDataset(scenes, num_points=n, num_views=num_views, seed=seed)
+    return batch_to_device(chunk_batch(ds.sample_batch(b), False), dev)
+
+
+def pn2_index_ops(points):
+    """The index tensors one PN2SSG forward builds from (B, N, 3) points —
+    per set-abstraction level the FPS and the ball query of its centroids,
+    per propagation level the 3-NN — and the time of each call (CUDA events
+    around the eager calls: the FPS is a host loop of one step a centroid,
+    so its time is the host's)."""
+    from mvkpconv_tpu_torch.ops.gather import batch_index_select
+    from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn
+    from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample
+
+    xyz, levels = points, [points]
+    times = {"fps": [], "ball_query": [], "knn": []}
+    sa, fp = [], []
+    for m, r in PN2_LEVELS:
+        times["fps"].append(cuda_ms(lambda: farthest_point_sample(xyz, m), reps=2, warmup=1))  # noqa: B023
+        new = batch_index_select(xyz, farthest_point_sample(xyz, m))
+        times["ball_query"].append(cuda_ms(lambda: ball_query(new, xyz, r, 32), reps=3, warmup=1))  # noqa: B023
+        sa.append((ball_query(new, xyz, r, 32), xyz.shape[1]))
+        xyz = new
+        levels.append(xyz)
+    for i in range(len(PN2_LEVELS)):
+        dense, sparse = levels[-2 - i], levels[-1 - i]
+        times["knn"].append(cuda_ms(lambda: knn(dense, sparse, 3), reps=3, warmup=1))  # noqa: B023
+        fp.append((knn(dense, sparse, 3)[0], sparse.shape[1]))
+    return times, sa, fp, levels
+
+
+def precompute_k2_inputs(dev):
+    """K2's inputs in ``precompute_2d`` at its defaults (a ``train_2d`` run's
+    ``KPConfig``): one synthetic scene with the frames the CLI renders for
+    it, its points subsampled as ``attach_precomputed_features`` does, and
+    per point chunk (``POINT_CHUNK``) the points and window anchors; the
+    first chunk and the last, padded with points at the origin. Returns
+    (window, k, [(name, points, image_xyz, iu0, iv0, real points)])."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.spheres import grid_subsample_np
+    from mvkpconv_tpu_torch.eval.precompute import POINT_CHUNK
+    from mvkpconv_tpu_torch.ops.unproject import project_to_views, unproject_depth, window_anchors
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+    from mvkpconv_tpu_torch.training.config import KPConfig
+
+    cfg = KPConfig()
+    scene = load_scenes("synthetic:1", True, max(cfg.num_views, 8), (cfg.image_height, cfg.image_width))[0]
+    pts, _, _ = grid_subsample_np(scene["points"], scene["colors"], scene["labels"],
+                                  cfg.first_subsampling_dl, cfg.num_classes)
+    as_t = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)[None]  # noqa: E731
+    intr, poses = as_t(scene["intrinsics"]), as_t(scene["poses"])
+    image_xyz = unproject_depth(as_t(scene["depth"]), intr, poses)[0].contiguous()
+    v, h, w = image_xyz.shape[1:4]
+    window, k = cfg.pixel_window, min(cfg.pixel_knn, v * cfg.pixel_window**2)
+    last = (len(pts) - 1) // POINT_CHUNK * POINT_CHUNK
+    out = []
+    for name, start in (("first", 0), ("padded_tail", last)):
+        real = len(pts[start:start + POINT_CHUNK])
+        chunk = as_t(np.pad(pts[start:start + POINT_CHUNK], ((0, POINT_CHUNK - real), (0, 0)))).contiguous()
+        u, vv = project_to_views(chunk, intr, poses)
+        out.append((name, chunk, image_xyz, window_anchors(u, w, window).contiguous(),
+                    window_anchors(vv, h, window).contiguous(), real))
+    return window, k, out
+
+
+def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows):
+    """K2 and K3 where the MVPNet path hands them other inputs than the
+    bench's: K2 at ``MVPNet3D``'s selection (4 chunks of 8192 points, 3 views
+    of 120x160, window 9, k = 3, f32 candidates), timed; K3 at the SA0
+    feature gather (ball-query index (4, 2048, 32) into 8192 targets, 64
+    wide), the FP3 interpolation gather (3-NN index (4, 8192, 3) into 2048
+    targets, 128 wide) and a ball query with heavy padding (radius 0.025 at
+    SA0's centroids: most rows repeat the centroid's own index), each with
+    f32, bf16 and rounded rows, timed, the call that builds its own plan
+    (as every PN2 gather VJP does: no pyramid attaches one) beside the sum
+    given the plan; K2 at ``precompute_2d``'s selection (one scene's
+    frames, a 4,096-point chunk, timed, and the last chunk, whose padding
+    points sit at the origin, untimed). Returns the index ops' times and
+    the precompute's K2 shapes."""
+    from mvkpconv_tpu_torch.ops.neighbors import ball_query
+    from mvkpconv_tpu_torch.ops.unproject import project_to_views, unproject_depth, window_anchors
+
+    batch = mvpnet_batch(dev, scenes)
+    p = batch["points"]
+    image_xyz, _ = unproject_depth(batch["depth"], batch["intrinsics"], batch["poses"])
+    u, v = project_to_views(p, batch["intrinsics"], batch["poses"])
+    h, w = image_xyz.shape[2:4]
+    check_k2("k2_mvpnet_float32", p, image_xyz.contiguous(), window_anchors(u, w, 9).contiguous(),
+             window_anchors(v, h, 9).contiguous(), 9, 3, k2_rows)
+    window, k, chunks = precompute_k2_inputs(dev)
+    for name, chunk, xyz, iu0, iv0, real in chunks:
+        check_k2(f"k2_precompute_{name}", chunk, xyz, iu0, iv0, window, k, k2_rows, timed=name == "first",
+                 real_points=real)
+    assert chunks[-1][-1] < chunks[-1][1].shape[1], "the scene's last chunk is not padded"
+    pre_shapes = {(tuple(c[1].shape), tuple(c[2].shape), window, k) for c in chunks}
+    times, sa, fp, levels = pn2_index_ops(p)
+    per_forward = {k: sum(t) for k, t in times.items()}
+    emit({"phase": "pn2_index_ops", "points": list(p.shape), "levels": [list(x.shape) for x in levels],
+          "ms": times, "ms_per_forward": per_forward, "timing": "CUDA events around each eager call",
+          "card": smi})
+    check_k3("k3_pn2_sa0", sa[0][0], sa[0][1], 64, gen, k3_rows)
+    check_k3("k3_pn2_fp3", fp[3][0], fp[3][1], 128, gen, k3_rows)
+    padded = ball_query(levels[1], p, 0.025, 32)
+    repeats = float((padded[..., 1:] == padded[..., :1]).float().mean())
+    check_k3("k3_pn2_padded", padded, p.shape[1], 64, gen, k3_rows)
+    emit({"phase": "k3_pn2_padded_index", "radius": 0.025, "repeated_entries": repeats,
+          "targets_hit": int((padded[0].reshape(-1).bincount(minlength=p.shape[1]) > 0).sum()),
+          "largest_target_rows": int(padded[0].reshape(-1).bincount().max())})
+    assert repeats > 0.5, repeats
+    return per_forward, pre_shapes
+
+
+def val_mious(run):
+    return [rec["value"] for line in (run / "scalars.jsonl").read_text().splitlines()
+            if (rec := json.loads(line))["tag"] == "val_miou"]
+
+
+def trainer_row(trainer, seconds, peak):
+    meters = trainer.meters.meters
+    step_ms = [1e3 * t for t in meters["time"].values]
+    data_ms = [1e3 * t for t in meters["data"].values]
+    return {"seconds": seconds, "steps": trainer.step, "ms_per_step": step_ms, "data_ms_per_step": data_ms,
+            "ms_per_step_after_first": sum(step_ms[1:]) / max(len(step_ms) - 1, 1),
+            "data_ms_after_first": sum(data_ms[1:]) / max(len(data_ms) - 1, 1),
+            "losses": list(meters["loss"].values), "peak_mem_gib": peak}
+
+
+def run_cli(main, argv, dev):
+    """``main(argv)`` with every kernel's launches split between the
+    Trainer's validations and the rest; returns (result, seconds, peak GiB,
+    launches of the rest, launches of the validations, validations)."""
+    import torch
+
+    split = LaunchSplit()
+    try:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return (out, seconds, torch.cuda.max_memory_allocated(dev) / 2**30, split.steps(), dict(split.val),
+                split.val_calls)
+    finally:
+        split.close()
+
+
+def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
+    """The mvpnet fork's workflow at the CLIs' defaults on the card, as a
+    user runs it: ``train_2d`` (B=8 frames of 120x160, lr 5e-3, f32; 3 steps
+    and its full-frame validation sweep and checkpoint), ``test_2d`` on that
+    run (the trainer's last ``val_miou`` within 1e-6), ``train_mvpnet`` (B=4
+    chunks of 8192 points, 3 views of 120x160, PN2SSG at the published
+    widths, the UNet frozen; 3 steps, the 4-batch validation, a checkpoint;
+    ``net_2d`` bit-equal to its seeded weights, every other tensor moved),
+    ``test_mvpnet`` (the sliding chunks, stride 0.5, over one scene),
+    ``train_mvpnet --no-images`` (the PN2 baseline) and ``precompute_2d``
+    from the 2D run (one scene, 4,096-point chunks). Launches held to the
+    plan: a step of MVPNet K2 once and K3 8 times, each sum with a plan of
+    its own (SA0–SA3 feature gathers, FP0–FP3 interpolation gathers; the
+    xyz gathers take no gradient), 7 for the baseline (SA0 gathers the
+    input colors); K2 once a forward elsewhere, once a chunk in the
+    precompute, there at the shapes ``check_mvpnet_kernels`` held it at
+    (``pre_shapes``); K1 and K4 never. Returns the launches by path."""
+    import math
+
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.chunks import Frames2DDataset
+    from mvkpconv_tpu_torch.infer import batch_to_device, make_model
+    from mvkpconv_tpu_torch.ops import unproject
+    from mvkpconv_tpu_torch.tools import precompute_2d, test_2d, test_mvpnet, train_2d, train_mvpnet
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+
+    never = ("radius_topk", "kpconv_fused_fwd", "kpconv_fused_bwd_x", "kpconv_wf")
+
+    # ---- train_2d, then test_2d on its run
+    run2d = tmp / "train_2d_run"
+    trainer, seconds, peak, launches_2d, val_2d, vals = run_cli(
+        train_2d.main, ["--data", "synthetic:2", "--output", str(run2d), "--steps", "3"], dev)
+    mious = val_mious(run2d)
+    assert trainer.step == 3 and vals == 1 and len(mious) == 1 and np.isfinite(mious[0]), (trainer.step, mious)
+    assert (run2d / "checkpoints" / "model_best.pt").exists() and any((run2d / "panels").iterdir())
+    assert not any(launches_2d.values()) and not any(val_2d.values()), (launches_2d, val_2d)
+    cfg2d = trainer.cfg
+    frames = Frames2DDataset(load_scenes("synthetic:2", True, cfg2d.num_views,
+                                         (cfg2d.image_height, cfg2d.image_width)), seed=0)
+    fb = batch_to_device(frames.sample_batch(cfg2d.batch_num), dev)
+    busy = device_ms(lambda: trainer.train_step(fb), reps=3)
+    t0 = time.perf_counter()
+    ev = test_2d.main(["--run", str(run2d), "--data", "synthetic:2"])
+    test_seconds = time.perf_counter() - t0
+    emit({"phase": "train_2d_full", "config": "train_2d defaults (UNet-ResNet34, B=8 frames of 120x160, lr 5e-3, "
+          "momentum 0.9, f32) on synthetic:2, 3 steps", **trainer_row(trainer, seconds, peak),
+          "device_busy_ms_per_step": busy, "val_miou": mious, "test_2d_miou": ev.miou,
+          "test_2d_seconds": test_seconds, "test_2d_labelled_pixels": int(ev.confusion.sum()),
+          "launches": launches_2d, "card": smi})
+    assert abs(ev.miou - mious[-1]) <= 1e-6, (ev.miou, mious[-1])
+
+    # ---- train_mvpnet, then test_mvpnet on its run
+    runm = tmp / "train_mvpnet_run"
+    trainer, seconds, peak, steps_l, val_l, vals = run_cli(
+        train_mvpnet.main, ["--data", "synthetic:2", "--output", str(runm), "--steps", "3"], dev)
+    mious = val_mious(runm)
+    per_forward = trainer.cfg.batch_num  # test_mvpnet's chunks a forward
+    assert trainer.step == 3 and vals == 1 and np.isfinite(mious).all(), (trainer.step, mious)
+    assert steps_l["pixel_topk"] == 3 and steps_l["segsum"] == steps_l["segsum_plan"] == 8 * 3, steps_l
+    assert val_l["pixel_topk"] == 4 and val_l["segsum"] == val_l["segsum_plan"] == 0, val_l
+    assert not any(steps_l[k] + val_l[k] for k in never), (steps_l, val_l)
+    fresh = make_model(trainer.cfg, dev, seed=0, kind="mvpnet")
+    got_2d, start = trainer.model.net_2d.state_dict(), fresh.state_dict()
+    assert all(torch.equal(v, start[f"net_2d.{k}"]) for k, v in got_2d.items()), "net_2d moved"
+    outside = [n for n, _ in fresh.named_parameters() if not n.startswith("net_2d.")]
+    now = dict(trainer.model.named_parameters())
+    moved = sum(not torch.equal(now[n], start[n]) for n in outside)
+    assert moved == len(outside), f"{len(outside) - moved} parameters outside net_2d did not move"
+    mb = mvpnet_batch(dev, scenes)
+    busy = device_ms(lambda: trainer.train_step(mb), reps=3)
+    emit({"phase": "train_mvpnet_full", "config": "train_mvpnet defaults (MVPNet3D: UNet-ResNet34 frozen, "
+          "FeatureAggregation 64, PN2SSG centroids 2048/512/128/32, radii 0.1-0.8, 32 neighbors; B=4 chunks "
+          "of 8192 points, 3 views of 120x160, f32) on synthetic:2, 3 steps", **trainer_row(trainer, seconds, peak),
+          "device_busy_ms_per_step": busy, "val_miou": mious, "index_ops_ms_per_forward": index_ms,
+          "launches_steps": steps_l, "launches_validation": val_l,
+          "launches_per_step": {k: steps_l[k] / 3 for k in ("pixel_topk", "segsum", "segsum_plan")},
+          "net_2d_equal_bitwise": True, "params_moved": moved, "params_outside_net_2d": len(outside),
+          "card": smi})
+    reset_launches()
+    t0 = time.perf_counter()
+    ev, per_scene = test_mvpnet.main(["--run", str(runm), "--data", "synthetic:1"])
+    seconds = time.perf_counter() - t0
+    launches_test = read_launches()
+    chunks = per_scene[0]["chunks"]
+    assert launches_test["pixel_topk"] == math.ceil(chunks / per_forward), (launches_test, chunks)
+    assert launches_test["segsum"] == 0 and not any(launches_test[k] for k in never), launches_test
+    assert np.isfinite(ev.miou) and per_scene[0]["coverage"] > 0.5, (ev.miou, per_scene)
+    emit({"phase": "test_mvpnet", "stride": 0.5, "scenes": 1, "chunks": chunks,
+          "forwards": math.ceil(chunks / per_forward),
+          "seconds": seconds, "coverage": per_scene[0]["coverage"], "miou": ev.miou, "launches": launches_test})
+
+    # ---- the 3D-only PointNet++ baseline
+    trainer, seconds, peak, pn2_l, pn2_val, vals = run_cli(
+        train_mvpnet.main, ["--data", "synthetic:2", "--output", str(tmp / "train_pn2_run"), "--steps", "3", "--no-images"],
+        dev)
+    assert trainer.step == 3 and np.isfinite(trainer.meters.meters["loss"].values).all()
+    assert pn2_l["pixel_topk"] == 0 and pn2_l["segsum"] == pn2_l["segsum_plan"] == 7 * 3, pn2_l
+    assert pn2_val["pixel_topk"] == pn2_val["segsum"] == 0 and not any(pn2_l[k] for k in never), pn2_val
+    emit({"phase": "train_pn2_full", "config": "train_mvpnet --no-images (PN2SSG on the points' colors, the "
+          "same sizes)", **trainer_row(trainer, seconds, peak), "val_miou": val_mious(tmp / "train_pn2_run"),
+          "launches_steps": pn2_l, "launches_validation": pn2_val, "card": smi})
+
+    # ---- precompute_2d from the 2D run, K2's inputs recorded at each launch
+    shapes = []
+    pixel_topk = unproject.pixel_topk
+
+    def recorded(points, image_xyz, iu0, iv0, window, k):
+        shapes.append((tuple(points.shape), tuple(image_xyz.shape), window, k))
+        return pixel_topk(points, image_xyz, iu0, iv0, window, k)
+
+    unproject.pixel_topk = recorded
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        cached = precompute_2d.main(["--run", str(run2d), "--data", "synthetic:1", "--out", str(tmp / "f.pkl")])
+        seconds = time.perf_counter() - t0
+        launches_pre = read_launches()
+    finally:
+        unproject.pixel_topk = pixel_topk
+    feat = cached[0]["feature_2d3d"]
+    n = len(cached[0]["points"])
+    assert feat.shape == (n, 64) and np.isfinite(feat).all() and np.abs(feat).max() > 0, feat.shape
+    assert launches_pre["pixel_topk"] == math.ceil(n / 4096) == len(shapes) and launches_pre["segsum"] == 0, \
+        (launches_pre, len(shapes))
+    # the shapes check_mvpnet_kernels held K2 at, first and padded chunk
+    assert set(shapes) == pre_shapes, (set(shapes), pre_shapes)
+    emit({"phase": "precompute_2d", "points": n, "chunks": len(shapes), "frames": shapes[0][1][1],
+          "k2_inputs": {"points": list(shapes[0][0]), "image_xyz": list(shapes[0][1]), "window": shapes[0][2],
+                        "k": shapes[0][3]},
+          "feature_shape": list(feat.shape), "seconds": seconds, "launches": launches_pre})
+    return {"train_2d": launches_2d, "train_mvpnet": steps_l, "train_mvpnet_validation": val_l,
+            "test_mvpnet": launches_test, "train_pn2": pn2_l, "precompute_2d": launches_pre}
+
+
+# Each trained tensor's update, card against CPU: ‖Δcard − ΔCPU‖ / ‖ΔCPU‖.
+# Sound steps follow rounding (PN2SSG's max over a centroid's neighbors):
+# the port on the CPU against itself under a weight jitter of 1e-7 / 1e-6 /
+# 1e-5 moves its worst tensor by 0.0099 / 0.037 / 0.088 (MVPNet) and
+# 0.0035 / 0.012 / 0.053 (PN2); a planted fault (a tensor's gradient or a
+# gather's VJP zeroed) by 1.0 or more. The limit sits between.
+LEAF_UPDATE_REL = 0.25
+
+
+def update_gaps(cpu_state, gpu_state, start, trained):
+    """Per trained tensor ‖Δcard − ΔCPU‖ / ‖ΔCPU‖ of one step from ``start``,
+    and the same over all of them as one vector."""
+    import torch
+
+    leaf, num, den = {}, [], []
+    for n in trained:
+        want, got = cpu_state[n] - start[n], gpu_state[n] - start[n]
+        leaf[n] = float((got - want).norm() / want.norm().clamp(min=1e-30))
+        num.append((got - want).ravel())
+        den.append(want.ravel())
+    return leaf, float(torch.cat(num).norm() / torch.cat(den).norm())
+
+
+def assert_updates_agree(kind, leaf):
+    worst = max(leaf, key=leaf.get)
+    assert leaf[worst] <= LEAF_UPDATE_REL, f"card/CPU {kind} updates disagree at {worst} ({leaf[worst]})"
+
+
+def check_mvpnet_parity(dev, smi):
+    """MVPNet3D and PN2SSG on the card (K2, K3) against the CPU (plain
+    versions), f32, TF32 off, the same weights, dropout 0 (the two devices'
+    generators differ), on 2 chunks of 1024 points with 3 views of 24x32
+    and PN2SSG's centroids cut to (256, 64, 16, 4): the eval forward's
+    logits within 1e-4·max|logit|; 3 train steps (gather VJP 'banded'),
+    each from the CPU's state: each loss within 1e-5 relative, the BN
+    statistics within rtol 1e-3, atol 1e-5·(the largest |value|), the frozen
+    ``net_2d`` unchanged bit for bit, and each trained tensor's update
+    within ``LEAF_UPDATE_REL`` of the CPU's norm of it. The update is not
+    held element by element: PN2SSG's max over a centroid's 32 neighbors
+    picks another neighbor where two lie within rounding, and the port on
+    the CPU against itself under a 1e-7 weight jitter moves single
+    parameters by 31.5x (MVPNet) and 10.8x (PN2) phase 8's allowance
+    (tests/test_torch_mvpnet_train.py::test_updates_follow_rounding_in_the_port,
+    ROADMAP queue 3). Two planted faults must fail the same check: step 1
+    on the card with the smallest trained tensor's gradient zeroed, and
+    with the first gather VJP of the backward (K3's sum) zeroed. The
+    launches: K2 once a forward of MVPNet3D, K3 8 sums a step (7 for the
+    baseline, whose SA0 gathers the input colors), each with its own
+    plan."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.chunks import ChunkDataset
+    from mvkpconv_tpu_torch.infer import batch_to_device, infer
+    from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D
+    from mvkpconv_tpu_torch.models.pn2 import PN2SSG
+    from mvkpconv_tpu_torch.ops import gather
+    from mvkpconv_tpu_torch.tools.train_mvpnet import chunk_batch
+    from mvkpconv_tpu_torch.training.config import KPConfig
+    from mvkpconv_tpu_torch.training.init import init_parameters
+    from mvkpconv_tpu_torch.training.optim import make_optimizer
+    from mvkpconv_tpu_torch.training.steps import make_train_step
+
+    small = dict(num_centroids=(256, 64, 16, 4), dropout=0.0)
+    cfg = KPConfig(gather_transpose="banded", learning_rate=0.05)
+    ds = ChunkDataset(chunk_scenes(3, (24, 32)), num_points=1024, num_views=3, use_color_feature=True, seed=2)
+    raw = ds.sample_batch(2)
+    by_path = {}
+    for kind, build, sums, frozen in (("mvpnet", lambda: MVPNet3D(20, **small), 8, ("net_2d",)),
+                                      ("pn2", lambda: PN2SSG(20, in_channels=3, **small), 7, ())):
+        batch = chunk_batch(raw, no_images=kind == "pn2")
+        cpu_b, gpu_b = batch_to_device(batch, "cpu"), batch_to_device(batch, dev)
+        cpu = init_parameters(build(), 1).eval()
+        gpu = build().to(dev).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        want = infer(cpu, cpu_b)
+        reset_launches()
+        got = infer(gpu, gpu_b).cpu()
+        launches = read_launches()
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        emit({"phase": f"parity_{kind}", "config": "2 chunks of 1024 points, 3 views of 24x32, PN2SSG centroids "
+              "(256, 64, 16, 4), f32, TF32 off", "logits_shape": list(got.shape), "max_abs_err": err,
+              "max_abs_logit": scale, "limit": PARITY_REL * scale, "launches": launches})
+        assert bool(torch.isfinite(got).all()) and err <= PARITY_REL * scale, f"card/CPU {kind} logits disagree"
+        assert launches["pixel_topk"] == (1 if kind == "mvpnet" else 0) and launches["segsum"] == 0, launches
+
+        cpu.train()
+        gpu.train()
+        cpu_opt = make_optimizer(cpu, cfg, frozen_prefixes=frozen)
+        gpu_opt = make_optimizer(gpu, cfg, frozen_prefixes=frozen)
+        cpu_step, gpu_step = make_train_step(cpu, cfg, cpu_opt), make_train_step(gpu, cfg, gpu_opt)
+        trained = [n for n, _ in cpu.named_parameters() if not n.startswith(frozen)]
+        first = None  # (start, optimizer state, CPU state after) of step 1, for the planted faults
+        reset_launches()
+        for step in (1, 2, 3):
+            gpu.load_state_dict(cpu.state_dict())
+            gpu_opt.load_state_dict(copy.deepcopy(cpu_opt.state_dict()))
+            start = {k: v.clone() for k, v in cpu.state_dict().items()}
+            opt_start = copy.deepcopy(cpu_opt.state_dict())
+            want = float(cpu_step(cpu_b)["loss"])
+            got = float(gpu_step(gpu_b)["loss"])
+            loss_rel = abs(got - want) / abs(want)
+            cpu_state = cpu.state_dict()
+            gpu_state = {k: v.cpu() for k, v in gpu.state_dict().items()}
+            if first is None:
+                first = (start, opt_start, {k: v.clone() for k, v in cpu_state.items()})
+            leaf, gap = update_gaps(cpu_state, gpu_state, start, trained)
+            scale = max(float(v.abs().max()) for k, v in cpu_state.items() if v.is_floating_point())
+
+            def over(k):
+                allowance = TRAIN_PARAM_RTOL * cpu_state[k].abs() + TRAIN_PARAM_ATOL_REL * scale
+                return float(((gpu_state[k] - cpu_state[k]).abs() / allowance).max())
+
+            stats = {k: over(k) for k in cpu_state if k not in trained and cpu_state[k].is_floating_point()
+                     and not k.startswith(frozen)}
+            params = {n: over(n) for n in trained}
+            unet_still = all(torch.equal(gpu_state[k], start[k]) for k in gpu_state if k.startswith(frozen))
+            worst_stat = max(stats, key=stats.get)
+            worst = max(params, key=params.get)
+            worst_leaf = max(leaf, key=leaf.get)
+            emit({"phase": f"train_parity_{kind}", "config": "the same, banded, each step from the CPU's state",
+                  "step": step, "loss_card": got, "loss_cpu": want, "loss_rel_err": loss_rel,
+                  "worst_leaf_update_gap": leaf[worst_leaf], "worst_leaf": worst_leaf,
+                  "worst_leaf_numel": cpu_state[worst_leaf].numel(), "limit": LEAF_UPDATE_REL,
+                  "update_vector_gap": gap,
+                  "stat_err_over_allowance": stats[worst_stat], "worst_stat": worst_stat,
+                  "param_err_over_allowance": params[worst], "worst_param": worst,
+                  "params_outside": sum(r > 1.0 for r in params.values()), "params": len(params),
+                  "net_2d_equal_bitwise": unet_still, "launches": read_launches()})
+            assert np.isfinite(got) and loss_rel <= TRAIN_LOSS_REL, f"card/CPU {kind} train loss disagree"
+            assert_updates_agree(kind, leaf)
+            assert stats[worst_stat] <= 1.0, f"card/CPU {kind} BN statistics disagree"
+            assert unet_still, "the frozen net_2d moved on the card"
+        launches = read_launches()
+        assert launches["segsum"] == launches["segsum_plan"] == 3 * sums, launches
+        assert launches["pixel_topk"] == (3 if kind == "mvpnet" else 0), launches
+        by_path[f"train_parity_{kind}"] = launches
+
+        # ---- planted faults on the card's step 1, through the same check
+        start, opt_start, cpu_after = first
+        smallest = min(trained, key=lambda n: cpu_after[n].numel())
+        segsum = gather.segsum
+        for fault in ("gradient", "gather_vjp"):
+            gpu.load_state_dict(start)
+            gpu_opt.load_state_dict(copy.deepcopy(opt_start))
+            calls = []
+
+            def zeroed(rows, index, ns, round_bf16=False, plans=None):
+                calls.append(index.shape)
+                out = segsum(rows, index, ns, round_bf16, plans)
+                return torch.zeros_like(out) if len(calls) == 1 else out
+
+            hook = None
+            if fault == "gradient":
+                hook = dict(gpu.named_parameters())[smallest].register_hook(torch.zeros_like)
+            else:
+                gather.segsum = zeroed
+            try:
+                gpu_step(gpu_b)
+            finally:
+                gather.segsum = segsum
+                if hook is not None:
+                    hook.remove()
+            leaf, gap = update_gaps(cpu_after, {k: v.cpu() for k, v in gpu.state_dict().items()}, start, trained)
+            worst_leaf = max(leaf, key=leaf.get)
+            try:
+                assert_updates_agree(kind, leaf)
+                caught = False
+            except AssertionError:
+                caught = True
+            emit({"phase": f"train_parity_{kind}_planted_fault", "fault": fault,
+                  "where": smallest if fault == "gradient" else f"K3 sum of index {list(calls[0])}",
+                  "worst_leaf_update_gap": leaf[worst_leaf], "worst_leaf": worst_leaf, "limit": LEAF_UPDATE_REL,
+                  "update_vector_gap": gap, "caught": caught})
+            assert caught, f"a planted fault ({fault}) passed the {kind} update check"
+    return by_path
+
+
 def main() -> int:
     import torch
 
@@ -1664,6 +2188,9 @@ def main() -> int:
     check_k3_adversarial(pyr.neighbors[0], cfg.num_points[0] + 1, dev, gen, k3_adv_rows)
     # the deformable path's selections and deformed gathers (train_full_deform)
     check_deform_sites(deform_config(), levels, calls, gen, k1_rows, k3_rows)
+    # the MVPNet path's pixel selection and PN2's gathers (train_mvpnet)
+    mv_scenes = chunk_scenes(3, (120, 160))
+    index_ms, pre_shapes = check_mvpnet_kernels(dev, gen, mv_scenes, smi, k2_rows, k3_rows)
     top = len(pyr.points) - 1
     for name, q_l, s_l, inds, entry, cin, cout in (
         ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
@@ -1731,8 +2258,15 @@ def main() -> int:
         entry_paths = check_train_scannet(dev, smi, Path(tmp))
         torch.backends.cudnn.allow_tf32 = False
         check_trainer_parity(dev, small, Path(tmp))
+        # ---- the mvpnet fork's workflow: train_2d, test_2d, train_mvpnet,
+        # test_mvpnet, the PN2 baseline, precompute_2d; as a user runs them
+        torch.backends.cudnn.allow_tf32 = True
+        mvpnet_paths = check_mvpnet_workflow(dev, smi, Path(tmp), mv_scenes, index_ms, pre_shapes)
+        torch.backends.cudnn.allow_tf32 = False
+    mvpnet_parity = check_mvpnet_parity(dev, smi)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
-               "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths}
+               "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths,
+               **mvpnet_paths, **mvpnet_parity}
 
     def path_launches(*names):
         """Each full-width run's launches of a kernel, over its forwards or steps."""
@@ -1744,6 +2278,9 @@ def main() -> int:
     k3_main = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_float32_round")
     k3_bf16 = next(r for r in k3_rows if r["phase"] == "k3_L0_resnetb_bfloat16")
     k4_main = next(r for r in k4_rows if r["phase"] == "k4_L0_resnetb_bfloat16")
+    k2_mvpnet = next(r for r in k2_rows if r["phase"] == "k2_mvpnet_float32")
+    k2_pre = [r for r in k2_rows if r["phase"].startswith("k2_precompute_")]
+    k3_pn2 = [r for r in k3_rows if r["phase"].startswith("k3_pn2_")]
 
     def k4_entry(name, part, count):
         return {"name": name, "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/kpconv.cu",
@@ -1770,7 +2307,12 @@ def main() -> int:
          "timing": "device time, torch.profiler",
          "ms": bf16["ms"], "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
          "bound_by": bf16["bound_by"], "library_ms": None,
-         "earlier_ms": bf16.get("earlier_ms"), "earlier_from": EARLIER_FROM},
+         "earlier_ms": bf16.get("earlier_ms"), "earlier_from": EARLIER_FROM,
+         "mvpnet_shape": {x: k2_mvpnet[x] for x in ("b", "n", "views", "hw", "window", "dtype", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "rows_differ")},
+         "precompute_shape": [{x: r.get(x) for x in ("phase", "b", "n", "real_points", "views", "hw", "window", "k",
+                                                     "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                     "rows_differ", "max_d2_gap")} for r in k2_pre]},
         {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
          "launches": train_launches["segsum"], "plan_launches": train_launches["segsum_plan"],
@@ -1784,7 +2326,10 @@ def main() -> int:
          "instance": "level-0 resnetb site, f32 rows with round_bf16, as the default path hands them",
          "earlier_ms": k3_main["earlier_ms"], "earlier_cast_ms": k3_main["earlier_cast_ms"],
          "earlier_from": EARLIER_FROM + ": the cast to bf16, then the kernel on bf16 rows",
-         "bf16_rows": {x: k3_bf16[x] for x in ("ms", "bound_ms", "earlier_ms", "library_ms")}},
+         "bf16_rows": {x: k3_bf16[x] for x in ("ms", "bound_ms", "earlier_ms", "library_ms")},
+         "pn2_sites": [{x: r[x] for x in ("phase", "nq", "k", "ns", "c", "ms", "first_call_ms", "plan_ms",
+                                          "plain_ms", "library_ms", "bound_ms", "bound_by", "err_over_allowance")}
+                       for r in k3_pn2]},
         {**k4_entry("kpconv_fused", "fwd", fused_launches["kpconv_fused_fwd"]),
          "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"],
          "launches_by_path": path_launches("kpconv_fused_fwd")},

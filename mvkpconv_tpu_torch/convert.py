@@ -1,9 +1,11 @@
 """Weight bridge: JAX package variables → the port's ``state_dict``.
 
 The port's submodules carry the flax scope names (``net_2d.layer1_0.conv1``,
-``encoder.block_3.KPConv``, ``head.head_softmax`` …), so the bridge walks
-the torch modules and reads each one's flax leaves at the same path, with
-the layout changes:
+``encoder.block_3.KPConv``, ``head.head_softmax``, ``net_3d.sa0.mlp.dense0``,
+``fp3``, ``mlp_seg``, ``seg_logit``, ``feat_aggreg`` …), so the bridge walks
+the torch modules and reads each one's flax leaves at the same path: any
+model of the port (MV-KPConv, KPFCNN, KPCNN, MVPNet3D, PN2SSG, or the UNet
+alone, whose leaves sit at the root), with the layout changes:
 
   * Conv kernel HWIO → OIHW;
   * Dense kernel (in, out) → Linear weight (out, in);

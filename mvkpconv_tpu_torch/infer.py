@@ -5,7 +5,8 @@
 batch lies on. The model is built on the first CUDA device unless the
 caller names another (``device="cpu"`` runs every kernel's plain version).
 ``make_model`` builds an MV-KPConv, or the 3D-only KPFCNN baseline where
-``cfg.fusion == 'none'``, as the JAX package's tools do. Usage::
+``cfg.fusion == 'none'``, as the JAX package's tools do; ``kind`` asks for
+the mvpnet fork's models (MVPNet3D, PN2SSG, the UNet alone). Usage::
 
     cfg = bench_config()  # or fused_config(), deform_config(), baseline_config(),
                           # or fusion="middle" / "late"
@@ -16,7 +17,7 @@ caller names another (``device="cpu"`` runs every kernel's plain version).
 
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -24,6 +25,9 @@ from torch import nn
 
 from mvkpconv_tpu_torch.models.kpfcnn import KPCNN, KPFCNN
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv
+from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D
+from mvkpconv_tpu_torch.models.pn2 import PN2SSG
+from mvkpconv_tpu_torch.models.unet2d import UNetResNet34
 from mvkpconv_tpu_torch.ops.pyramid import Pyramid, build_pyramid
 from mvkpconv_tpu_torch.training.config import ARCHITECTURE_DEEPER, KPConfig
 from mvkpconv_tpu_torch.training.init import init_parameters
@@ -88,23 +92,63 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda", 0)
 
 
-def make_model(cfg, device=None, seed: int = 0, freeze_2d: bool = True) -> Union[MVKPConv, KPFCNN]:
-    """An MV-KPConv (its UNet frozen unless ``freeze_2d=False``), or a KPFCNN
-    where ``cfg.fusion == 'none'``, in eval mode with weights drawn from
-    ``seed``, on ``device`` (default: the first CUDA device; raises without
-    one)."""
-    model = KPFCNN(cfg) if cfg.fusion == "none" else MVKPConv(cfg, freeze_2d=freeze_2d)
+# the model families of the JAX package's ``make_apply_fn``
+MODEL_KINDS = ("mvkpconv", "kpfcnn", "mvpnet", "pn2", "unet2d")
+# the kinds whose models take a pyramid
+PYRAMID_MODELS = (MVKPConv, KPFCNN, KPCNN)
+
+
+def make_model(cfg, device=None, seed: int = 0, freeze_2d: bool = True, kind: str = None) -> nn.Module:
+    """A model of ``kind`` in eval mode with weights drawn from ``seed``, on
+    ``device`` (default: the first CUDA device; raises without one):
+    ``mvkpconv`` (its UNet frozen unless ``freeze_2d=False``) or ``kpfcnn``
+    (the default by ``cfg.fusion``, ``'none'`` for the KPFCNN); ``mvpnet``
+    (MVPNet3D, UNet frozen likewise), ``pn2`` (PN2SSG on the points' 3 color
+    channels) or ``unet2d`` (the UNet alone), each at the reference's widths
+    and f32, as the JAX package's tools build them."""
+    kind = kind or ("kpfcnn" if cfg.fusion == "none" else "mvkpconv")
+    if kind == "mvkpconv":
+        model = MVKPConv(cfg, freeze_2d=freeze_2d)
+    elif kind == "kpfcnn":
+        model = KPFCNN(cfg)
+    elif kind == "mvpnet":
+        model = MVPNet3D(cfg.num_classes, freeze_2d=freeze_2d, seed=seed)
+    elif kind == "pn2":
+        model = PN2SSG(cfg.num_classes, in_channels=3, seed=seed)
+    elif kind == "unet2d":
+        model = UNetResNet34(cfg.num_classes)
+    else:
+        raise ValueError(f"unknown model kind {kind!r}; one of {MODEL_KINDS}")
     model = model.to(resolve_device(device))
     init_parameters(model, seed)
     return model.eval()
 
 
-def apply_model(model: nn.Module, batch: Dict[str, torch.Tensor], pyr: Pyramid) -> torch.Tensor:
+def apply_model(model: nn.Module, batch: Dict[str, torch.Tensor], pyr: Optional[Pyramid] = None) -> torch.Tensor:
     """Logits of ``model`` on ``batch`` (JAX ``make_apply_fn``): a KPFCNN
-    or a KPCNN takes the level-0 features, an MV-KPConv the whole batch."""
+    or a KPCNN takes the level-0 features and the pyramid, an MV-KPConv the
+    whole batch and the pyramid, an MVPNet3D the whole batch, a PN2SSG the
+    points and their ``features`` (if any), the UNet the images (its
+    ``seg_logit``, (B, H, W, C))."""
     if isinstance(model, (KPFCNN, KPCNN)):
         return model(batch["features"], pyr)
-    return model(batch, pyr)
+    if isinstance(model, MVKPConv):
+        return model(batch, pyr)
+    if isinstance(model, MVPNet3D):
+        return model(batch)
+    if isinstance(model, PN2SSG):
+        return model(batch["points"], batch.get("features"))
+    if isinstance(model, UNetResNet34):
+        return model(batch["images"])["seg_logit"]
+    raise TypeError(f"no model kind for {type(model).__name__}")
+
+
+def model_pyramid(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Optional[Pyramid]:
+    """The pyramid ``model`` takes of ``batch``, or None for a model that
+    takes none (MVPNet3D, PN2SSG, the UNet)."""
+    if not isinstance(model, PYRAMID_MODELS):
+        return None
+    return build_pyramid(batch["points"], batch["mask"], model.cfg.pyramid_spec())
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -112,8 +156,8 @@ def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Ten
 
 
 @torch.inference_mode()
-def infer(model: Union[MVKPConv, KPFCNN, KPCNN], batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Logits (B, N0, num_classes) of one batch, (B, num_classes) for a
-    KPCNN: pyramid, (lift,) trunk, head."""
-    pyr = build_pyramid(batch["points"], batch["mask"], model.cfg.pyramid_spec())
-    return apply_model(model, batch, pyr)
+def infer(model: nn.Module, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Logits of one batch: (B, N0, num_classes) per point, (B, num_classes)
+    for a KPCNN, (B, H, W, num_classes) for the UNet; the pyramid, where the
+    model takes one, then the model."""
+    return apply_model(model, batch, model_pyramid(model, batch))

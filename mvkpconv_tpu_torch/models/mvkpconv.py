@@ -14,7 +14,9 @@ The 2D network runs in the forward; with ``freeze_2d`` (the default) it stays
 in eval mode when the model trains and runs under ``no_grad``, as the JAX
 model runs it with ``train=False`` and stops its gradient. The lift — depth
 unprojection, the projective pixel k-NN (kernel K2), one gather of pixel
-xyz ⊕ features and FeatureAggregation — runs on the batch's device; batches
+xyz ⊕ features and FeatureAggregation — runs on the batch's device (a
+batch without poses, or ``pixel_assoc='exact'``, takes the brute-force pixel
+k-NN of ``ops/unproject.py`` instead of K2); batches
 may instead carry precomputed ``knn_indices`` / ``image_xyz`` (or the whole
 lifted ``feature_2d3d``). Submodules carry the flax scope names, so the
 weight bridge is a name-for-name walk for every variant.
@@ -39,6 +41,7 @@ from mvkpconv_tpu_torch.models.unet2d import UNetResNet34
 from mvkpconv_tpu_torch.ops.gather import group_points_joint
 from mvkpconv_tpu_torch.ops.pyramid import Pyramid
 from mvkpconv_tpu_torch.ops.unproject import (
+    points_to_pixel_knn,
     points_to_pixel_knn_projective,
     unproject_depth,
 )
@@ -131,11 +134,8 @@ class MVKPConv(nn.Module):
                 cfg.pixel_knn, window=cfg.pixel_window,
                 patch_dtype=as_torch_dtype(cfg.pixel_patch_dtype),
             )
-        else:
-            raise NotImplementedError(
-                "brute-force pixel association (pixel_assoc='exact') is not "
-                "ported yet (ROADMAP queue 1, P7 item 7)"
-            )
+        else:  # no poses, or pixel_assoc='exact': the global nearest pixels
+            knn_idx = points_to_pixel_knn(points, image_xyz, cfg.pixel_knn)
         with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_2d):
             preds = self.net_2d(images.reshape(b * v, h, w, 3))
         feat = preds["feature"].reshape(b, v * h * w, -1).to(cfg.compute_dtype)

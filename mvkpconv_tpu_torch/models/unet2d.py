@@ -14,6 +14,8 @@ scopes.
 
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -149,3 +151,50 @@ class UNetResNet34(nn.Module):
             "seg_logit": seg_logit.permute(0, 2, 3, 1),
             "feature": x.permute(0, 2, 3, 1),
         }
+
+
+def load_torch_resnet34_encoder(model: UNetResNet34, state_dict) -> UNetResNet34:
+    """torchvision ResNet34 weights into the UNet's encoder, in place
+    (``mvkpconv_tpu/models/unet2d.py:load_torch_resnet34_encoder``; the
+    reference builds its 2D net on ``resnet34(pretrained)``,
+    mvpnet/models/unet_resnet34.py:17-31, ``conv1.weight`` into the stride-1
+    stem). Kernels stay OIHW; BN ``weight``/``bias``/running statistics go
+    to the same names; the decoder and the logit conv are left as they are.
+
+    ``state_dict``: a ``resnet34().state_dict()`` (tensors or numpy arrays)
+    or the path of a ``torch.save``d one (a dict under ``'state_dict'`` is
+    unwrapped). Raises on a missing key or a shape that differs.
+    """
+    if not isinstance(state_dict, Mapping):
+        raw = torch.load(str(state_dict), map_location="cpu", weights_only=True)
+        state_dict = raw["state_dict"] if "state_dict" in raw else raw
+    target = model.state_dict()
+    new = {}
+
+    def put(name: str, key: str):
+        if name not in target:
+            raise KeyError(f"the UNet has no {name!r}")
+        val = torch.as_tensor(state_dict[key])
+        if tuple(val.shape) != tuple(target[name].shape):
+            raise ValueError(f"{name}: torch weight shape {tuple(val.shape)} != {tuple(target[name].shape)}")
+        new[name] = val.to(target[name].dtype)
+
+    def put_bn(name: str, prefix: str):
+        for ours, theirs in (("weight", "weight"), ("bias", "bias"),
+                             ("running_mean", "running_mean"), ("running_var", "running_var")):
+            put(f"{name}.{ours}", f"{prefix}.{theirs}")
+
+    put("encoder0.weight", "conv1.weight")
+    put_bn("bn0", "bn1")
+    for stage, (_, depth) in enumerate(RESNET34_LAYERS):
+        for i in range(depth):
+            t, f = f"layer{stage + 1}.{i}", f"layer{stage + 1}_{i}"
+            put(f"{f}.conv1.weight", f"{t}.conv1.weight")
+            put_bn(f"{f}.bn1", f"{t}.bn1")
+            put(f"{f}.conv2.weight", f"{t}.conv2.weight")
+            put_bn(f"{f}.bn2", f"{t}.bn2")
+            if f"{t}.downsample.0.weight" in state_dict:
+                put(f"{f}.proj.weight", f"{t}.downsample.0.weight")
+                put_bn(f"{f}.proj_bn", f"{t}.downsample.1")
+    model.load_state_dict(new, strict=False)
+    return model

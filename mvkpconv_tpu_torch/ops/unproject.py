@@ -20,6 +20,7 @@ import torch
 
 from mvkpconv_tpu_torch.ops.common import SHADOW_COORD
 from mvkpconv_tpu_torch.ops.kernels.pixel_select import pixel_topk
+from mvkpconv_tpu_torch.ops.neighbors import knn
 
 
 def unproject_depth(
@@ -49,6 +50,18 @@ def unproject_depth(
     valid = depth > 0
     world = torch.where(valid[..., None], world, torch.full_like(world, SHADOW_COORD))
     return world, valid
+
+
+def points_to_pixel_knn(points: torch.Tensor, image_xyz: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """Brute-force k-NN of (B, N, 3) points in the flattened (B, V·H·W)
+    pixel cloud of (B, V, H, W, 3) ``image_xyz`` (invalid pixels at
+    SHADOW_COORD): the global nearest pixels, for batches without poses.
+
+    Returns (B, N, k) int32 indices into the V·H·W axis, ascending by d²
+    (JAX ``points_to_pixel_knn(method='exact')``).
+    """
+    b = image_xyz.shape[0]
+    return knn(points, image_xyz.reshape(b, -1, 3), k)[0]
 
 
 def project_to_views(

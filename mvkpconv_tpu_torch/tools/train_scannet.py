@@ -79,9 +79,9 @@ def main(argv=None):
     frozen = fusion != "none" and bool(args.path_2d)
     setup = make_trainer(cfg, device, seed=args.seed, freeze_2d=frozen)
     if frozen:
-        from mvkpconv_tpu_torch.training.transfer import load_2d_checkpoint_into
+        from mvkpconv_tpu_torch.training.transfer import load_2d_checkpoint
 
-        load_2d_checkpoint_into(setup.model, args.path_2d)
+        load_2d_checkpoint(setup.model.net_2d, args.path_2d)
         print(f"loaded frozen 2D weights from {args.path_2d}")
     eval_step = make_eval_step(setup.model, cfg)
 

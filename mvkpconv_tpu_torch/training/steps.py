@@ -1,22 +1,27 @@
 """Train and eval steps (``mvkpconv_tpu/training/steps.py``).
 
 A train step is the JAX package's jitted step run eagerly: the pyramid
-(under ``no_grad``), the forward in training mode, the masked cross-entropy,
-the backward — every trunk gather's VJP in the mode of
-``cfg.gather_transpose`` (kernel K3 for the ``banded`` modes) — then the
-clipped SGD update. Batch-norm statistics update in the forward.
+(under ``no_grad``, for the models that take one), the forward in training
+mode, the masked cross-entropy, the backward — every gather's VJP in the
+mode of ``cfg.gather_transpose`` (kernel K3 for the ``banded`` modes: the
+KPConv trunk's gathers, PN2's set-abstraction and interpolation gathers) —
+then the clipped SGD update. Batch-norm statistics update in the forward.
 
-The model kind decides what the model is given (JAX ``make_apply_fn``): a
-``KPFCNN`` (``fusion='none'``) the batch's level-0 features, an
-``MVKPConv`` the whole batch. A configuration with deformable blocks adds
+The model kind decides what the model is given (JAX ``make_apply_fn``,
+``infer.apply_model``): a ``KPFCNN`` (``fusion='none'``) the batch's level-0
+features and the pyramid, an ``MVKPConv`` the whole batch and the pyramid,
+an ``MVPNet3D`` the whole batch, a ``PN2SSG`` the points and their
+features, the UNet the images. A configuration with deformable blocks adds
 the deformable regularizer to the loss (``losses.deform_regularization``),
 as the JAX step does.
 
 Batch dict (as the JAX step takes it): points (B, N0, 3), mask (B, N0),
 features (B, N0, C), labels (B, N0) in [0, C) or ``ignore_label``, and the
 fusion inputs (images, depth, intrinsics, poses, or their precomputed
-forms). There is no dropout on this path (the frozen UNet's is 0), so a
-step draws no random numbers.
+forms); an MVPNet or PN2 chunk batch has no mask (chunks are resampled to
+their size); a UNet batch is images (B, H, W, 3) and labels (B, H, W). The
+only random numbers a step draws are PN2SSG's dropout masks, from the
+model's own generator.
 """
 
 from __future__ import annotations
@@ -26,9 +31,8 @@ from typing import Callable, Dict
 import torch
 from torch import nn
 
-from mvkpconv_tpu_torch.infer import apply_model
+from mvkpconv_tpu_torch.infer import apply_model, model_pyramid
 from mvkpconv_tpu_torch.ops.gather import gather_transpose
-from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.training.losses import deform_regularization, segmentation_cross_entropy
 
 
@@ -39,7 +43,7 @@ def forward_backward(model: nn.Module, cfg, batch: Dict[str, torch.Tensor]):
     Returns ``(loss, logits)``, both detached."""
     model.train()
     with torch.no_grad():
-        pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
+        pyr = model_pyramid(model, batch)
     with gather_transpose(cfg.port_option("gather_transpose")):
         logits = apply_model(model, batch, pyr)
         loss = segmentation_cross_entropy(
@@ -47,7 +51,7 @@ def forward_backward(model: nn.Module, cfg, batch: Dict[str, torch.Tensor]):
             class_weights=cfg.class_weights, ignore_label=cfg.ignore_label,
             label_smoothing=cfg.label_smoothing, balance=cfg.segloss_balance,
         )
-        if any("deform" in b for b in cfg.architecture):
+        if pyr is not None and any("deform" in b for b in cfg.architecture):
             loss = loss + deform_regularization(model, cfg.repulse_extent, cfg.deform_fitting_power)
         loss.backward()
     return loss.detach(), logits.detach()
@@ -82,7 +86,6 @@ def make_eval_step(model: nn.Module, cfg) -> Callable:
     @torch.inference_mode()
     def step(batch):
         model.eval()
-        pyr = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec())
-        return torch.softmax(apply_model(model, batch, pyr), dim=-1)
+        return torch.softmax(apply_model(model, batch, model_pyramid(model, batch)), dim=-1)
 
     return step

@@ -1,7 +1,8 @@
 """Parameter transfer between training runs
-(``mvkpconv_tpu/training/transfer.py``): a 2D run's UNet weights into the
-``net_2d`` of a fusion model (the reference's ``torch.load(config.path_2D)``
-into the frozen UNet, architectures_sphere.py:226-237).
+(``mvkpconv_tpu/training/transfer.py``): a 2D run's UNet weights into a
+UNet, such as a fusion model's ``net_2d`` (the reference's
+``torch.load(config.path_2D)`` into the frozen UNet,
+architectures_sphere.py:226-237).
 
 A 2D run's checkpoint is the port's own format (``training/checkpoint.py``)
 whose ``model`` entry is the ``UNetResNet34``'s ``state_dict``. Reading the
@@ -19,11 +20,11 @@ from torch import nn
 from mvkpconv_tpu_torch.training.checkpoint import BEST, Checkpointer
 
 
-def load_2d_checkpoint_into(model: nn.Module, run_dir) -> nn.Module:
-    """Fill ``model.net_2d`` (parameters and BN statistics) from the UNet of
-    the 2D run at ``run_dir``: its best-metric snapshot, else its latest
-    checkpoint. Raises where the checkpoint's keys or shapes differ from
-    ``net_2d``'s."""
+def load_2d_checkpoint(unet: nn.Module, run_dir) -> Path:
+    """Fill a ``UNetResNet34`` (parameters and BN statistics) from the 2D run
+    at ``run_dir``: its best-metric snapshot, else its latest checkpoint;
+    returns the file read. Raises where the checkpoint's keys or shapes
+    differ from the UNet's."""
     ck = Checkpointer(Path(run_dir) / "checkpoints")
     path = ck.dir / BEST
     if not path.exists():
@@ -31,10 +32,10 @@ def load_2d_checkpoint_into(model: nn.Module, run_dir) -> nn.Module:
     if path is None:
         raise FileNotFoundError(f"no 2D checkpoint under {run_dir}/checkpoints")
     raw = ck.restore(path)["model"]
-    target = model.net_2d.state_dict()
+    target = unet.state_dict()
     if set(raw) != set(target):
         raise ValueError(
-            f"2D checkpoint {path} does not hold the fusion model's net_2d: "
+            f"2D checkpoint {path} does not hold the UNet: "
             f"missing {sorted(set(target) - set(raw))[:5]}, "
             f"unexpected {sorted(set(raw) - set(target))[:5]}"
         )
@@ -42,8 +43,9 @@ def load_2d_checkpoint_into(model: nn.Module, run_dir) -> nn.Module:
         if tuple(v.shape) != tuple(target[k].shape):
             raise ValueError(
                 f"2D checkpoint {k} shape {tuple(v.shape)} does not match the "
-                f"fusion model's net_2d shape {tuple(target[k].shape)}"
+                f"UNet's shape {tuple(target[k].shape)}"
             )
     with torch.no_grad():
-        model.net_2d.load_state_dict({k: v.to(target[k].dtype) for k, v in raw.items()})
-    return model
+        unet.load_state_dict({k: v.to(target[k].dtype) for k, v in raw.items()})
+    return path
+

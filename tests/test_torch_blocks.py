@@ -356,11 +356,13 @@ def test_unported_variants_raise():
     cfg = KPConfig(**CFG)
     with pytest.raises(ValueError, match="fusion"):
         MVKPConv(cfg.replace(fusion="none"))
-    with pytest.raises(NotImplementedError, match="P7"):
-        MVKPConv(cfg.replace(pixel_assoc="exact")).lift_2d_features(
-            {"images": torch.zeros(1, 1, 8, 8, 3), "image_xyz": torch.zeros(1, 1, 8, 8, 3)},
-            torch.zeros(1, 4, 3),
-        )
+    # the brute-force pixel association is ported now: it runs, and takes
+    # the global nearest pixels (tests/test_torch_pn2.py holds it to JAX)
+    lifted = MVKPConv(cfg.replace(pixel_assoc="exact")).lift_2d_features(
+        {"images": torch.zeros(1, 1, 8, 8, 3), "image_xyz": torch.zeros(1, 1, 8, 8, 3)},
+        torch.zeros(1, 4, 3),
+    )
+    assert lifted.shape == (1, 4, cfg.feature_2d_dim)
 
 
 def test_convert_raises_on_unused_or_unset_leaves():

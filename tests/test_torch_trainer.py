@@ -1,5 +1,5 @@
 """PyTorch port: the training loop around the train step — ``Checkpointer``,
-``Trainer``, ``load_2d_checkpoint_into``, the unfrozen 2D net and
+``Trainer``, ``load_2d_checkpoint``, the unfrozen 2D net and
 ``remat='blocks'`` — on the CPU (every kernel as its plain version), and
 against the JAX package's ``Trainer`` and train step.
 
@@ -77,7 +77,7 @@ from mvkpconv_tpu_torch.training.init import init_parameters  # noqa: E402
 from mvkpconv_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step  # noqa: E402
 from mvkpconv_tpu_torch.training.trainer import Trainer  # noqa: E402
-from mvkpconv_tpu_torch.training.transfer import load_2d_checkpoint_into  # noqa: E402
+from mvkpconv_tpu_torch.training.transfer import load_2d_checkpoint  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-5)
@@ -390,7 +390,7 @@ def test_load_2d_checkpoint_into_fills_net_2d_and_a_frozen_net_stays(tmp_path):
     unet = init_parameters(UNetResNet34(cfg.num_classes), seed=3)
     Checkpointer(tmp_path / "run2d" / "checkpoints").save({"step": 7, "model": unet.state_dict()}, 7)
     setup = make_trainer(cfg, "cpu", seed=0, freeze_2d=True)
-    load_2d_checkpoint_into(setup.model, tmp_path / "run2d")
+    load_2d_checkpoint(setup.model.net_2d, tmp_path / "run2d")
     for k, v in unet.state_dict().items():
         assert torch.equal(setup.model.net_2d.state_dict()[k], v), k
     before = {k: v.clone() for k, v in setup.model.state_dict().items()}
@@ -404,9 +404,9 @@ def test_load_2d_checkpoint_into_fills_net_2d_and_a_frozen_net_stays(tmp_path):
     wide = UNetResNet34(cfg.num_classes + 1)
     Checkpointer(tmp_path / "wide" / "checkpoints").save({"step": 1, "model": wide.state_dict()}, 1)
     with pytest.raises(ValueError, match="logit.weight shape"):
-        load_2d_checkpoint_into(setup.model, tmp_path / "wide")
+        load_2d_checkpoint(setup.model.net_2d, tmp_path / "wide")
     with pytest.raises(FileNotFoundError):
-        load_2d_checkpoint_into(setup.model, tmp_path / "nothing")
+        load_2d_checkpoint(setup.model.net_2d, tmp_path / "nothing")
 
 
 def test_unfrozen_2d_net_trains():
