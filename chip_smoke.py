@@ -175,7 +175,29 @@ Phases, each printed as one JSON line:
      of it (a max over neighbors flips at rounding: see
      ``check_mvpnet_parity``), the launches held to the plan; then two
      planted faults on the card's step 1 (the smallest tensor's gradient
-     zeroed, the backward's first K3 sum zeroed) must fail that check.
+     zeroed, the backward's first K3 sum zeroed) must fail that check;
+ 20. native_host_ops: the port's C++ host ops (``data/native.py``) built
+     with g++ and loaded (a run on the numpy fallbacks fails), on a
+     synthetic scan of 1,000,000 points: the voxel subsample at the CLI's
+     0.04 m equal to the numpy fallback's as a set (barycentres and colours
+     within 1e-5, majority labels equal), the 1-NN of 256 jittered points
+     equal to numpy's brute force, host ms of each;
+ 21. test_colmap_full: a COLMAP workspace of that scan (24 images, PINHOLE,
+     480x640 depth maps, a rotation and a translation into the scan's frame
+     in ``matrix_for_images.txt``), a run directory of seeded weights at the
+     training CLI's default configuration, ``tools/test_colmap.main`` on the
+     card at 1 vote (PyTorch's TF32 defaults): the poses back in the scan's
+     frame, K1 13 calls (26 launches) and K2 once a forward, no K3 or K4,
+     the prediction PLY re-read (a label in [0, C) per point of the
+     subsampled scan); host seconds of the scene's assembly and of the
+     dataset, forwards, ms and device busy a forward, peak memory, the
+     spheres' fill of N0, and the frame overlap's 1-NN at the JAX
+     package's 0.1 m cell against the library's own and numpy;
+ 22. test_colmap_parity: the same workspace at a small configuration (3
+     levels, width 32, N0=1024, B=2, 3 views of 120x160), card against
+     ``--device cpu``, f32, TF32 off: the same spheres, the accumulated
+     probabilities within 1e-4 of their largest, labels equal except at
+     near-ties (counted).
 
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
@@ -183,6 +205,7 @@ time the card could take for the same bytes and operations), the card's
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero.
 """
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -1555,7 +1578,12 @@ def check_trainer_parity(dev, small, tmp):
     the same seeded weights and the same ``SphereDataset`` seed, f32, TF32
     off, gather VJP 'banded'. Each step's loss within 1e-5 relative; every
     parameter and statistic after the 2 steps within rtol 1e-3, atol
-    1e-5·(the largest |param|)."""
+    1e-5·(the largest |param|). The dataset runs on the numpy host ops, the
+    batches this check was set on: the native ops list voxels in another
+    order, and on their first batches the UNet's statistics follow rounding
+    (a 1e-7 weight jitter moves them by 28x that allowance on the CPU alone:
+    ``tests/test_torch_trainer.py::
+    test_unfrozen_trainer_steps_follow_rounding_on_the_native_ops_batches``)."""
     import numpy as np
     import torch
     from mvkpconv_tpu_torch.data.spheres import SphereDataset, device_batch
@@ -1571,7 +1599,8 @@ def check_trainer_parity(dev, small, tmp):
         if name == "card":
             setup.model.load_state_dict(sides["cpu"][1])
         start = copy.deepcopy(setup.model.state_dict())
-        ds = SphereDataset(scenes, cfg, training=True, seed=0)
+        with numpy_host_ops():
+            ds = SphereDataset(scenes, cfg, training=True, seed=0)
         trainer = Trainer(setup.step, setup.model, setup.optimizer, str(tmp / f"parity_{name}"), cfg)
         reset_launches()
         trainer.fit((device_batch(b) for b in ds.batches()), max_steps=2)
@@ -2075,6 +2104,383 @@ def check_mvpnet_parity(dev, smi):
     return by_path
 
 
+# ---- custom-dataset inference: the native host ops, test_colmap on a COLMAP workspace
+
+SCAN_POINTS = 1_000_000  # a terrestrial scan of one room
+COLMAP_VIEWS, COLMAP_HW = 24, (480, 640)  # above 120x160, so that the tool's resize runs
+COLMAP_VOTES = 1.0  # the JAX tool's default is 10
+PARITY_VOTES = 0.05
+
+
+@contextlib.contextmanager
+def recorded(*targets):
+    """Each ``(owner, name)`` attribute wrapped for the block: every call's
+    host seconds and result are appended to ``calls[name]``."""
+    calls = {name: [] for _, name in targets}
+    saved = [(owner, name, getattr(owner, name)) for owner, name in targets]
+
+    def wrap(name, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            calls[name].append((time.perf_counter() - t0, out))
+            return out
+        return call
+
+    for owner, name, fn in saved:
+        setattr(owner, name, wrap(name, fn))
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def numpy_host_ops():
+    """The port's host ops on their numpy fallbacks for the block."""
+    from mvkpconv_tpu_torch.data import native
+
+    load = native._load
+    native._load = lambda: None
+    try:
+        yield
+    finally:
+        native._load = load
+
+
+def check_native_host_ops(scan, cell):
+    """The C++ host ops against their numpy fallbacks on the scan: the voxel
+    subsample (as many voxels; the same voxels, barycentres and mean colours
+    within 1e-5 and the same majority labels, but for the few a point on a
+    cell boundary puts on another side, counted) and the 1-NN of 256 jittered scan points into
+    the subsampled scan (the same indices as numpy's brute force); host ms
+    of each. The
+    library must build and load: a run on the fallbacks fails here."""
+    import numpy as np
+    from mvkpconv_tpu_torch.data import native, spheres
+
+    t0 = time.perf_counter()
+    loaded = native.available()
+    load_s = time.perf_counter() - t0
+    assert loaded, f"the native host ops did not build or load ({native._LIB_PATH})"
+    pts, cols, labs = scan["points"], scan["colors"], scan["labels"]
+    t0 = time.perf_counter()
+    got = native.grid_subsample_native(pts, cols, labs, cell)
+    native_sub_ms = (time.perf_counter() - t0) * 1e3
+    with numpy_host_ops():
+        t0 = time.perf_counter()
+        want = spheres.grid_subsample_np(pts, cols, labs, cell)
+        numpy_sub_ms = (time.perf_counter() - t0) * 1e3
+
+    # a point on a cell boundary may fall on either side: the C++ op takes
+    # floor(x * (1 / cell)), numpy floor(x / cell); the voxels such points
+    # touch are counted and left out of the comparison
+    inv = np.float32(1) / np.float32(cell)
+    native_vox, numpy_vox = np.floor(pts * inv).astype(np.int64), np.floor(pts / cell).astype(np.int64)
+    apart = (native_vox != numpy_vox).any(1)
+
+    def key(vox):
+        return (vox[:, 0] << 42) + (vox[:, 1] << 21) + vox[:, 2]
+
+    touched = set(key(native_vox[apart]).tolist()) | set(key(numpy_vox[apart]).tolist())
+
+    def by_voxel(sub):
+        k = key(np.floor(sub[0] / np.float32(cell)).astype(np.int64))
+        keep = ~np.isin(k, list(touched))
+        order = np.argsort(k[keep], kind="stable")
+        return k[keep][order], sub[0][keep][order], sub[1][keep][order], sub[2][keep][order]
+
+    (gk, gp, gc, gl), (wk, wp, wc, wl) = by_voxel(got), by_voxel(want)
+    assert len(got[0]) == len(want[0]), (len(got[0]), len(want[0]))
+    assert apart.sum() <= 1e-4 * len(pts), int(apart.sum())
+    assert np.array_equal(gk, wk), (len(gk), len(wk))
+    sub_gap = float(max(np.abs(gp - wp).max(), np.abs(gc - wc).max()))
+    assert sub_gap <= 1e-5, sub_gap
+    assert np.array_equal(gl, wl), int((gl != wl).sum())
+
+    rng = np.random.RandomState(0)
+    supports = got[0]
+    queries = (pts[rng.choice(len(pts), 256, replace=False)] + rng.normal(0, 0.02, (256, 3))).astype(np.float32)
+    t0 = time.perf_counter()
+    idx, d2 = native.nearest_neighbor_1nn_native(queries, supports)
+    native_nn_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want_idx = np.concatenate([((q[:, None] - supports[None]) ** 2).sum(-1).argmin(1)
+                               for q in np.array_split(queries, 64)])
+    numpy_nn_ms = (time.perf_counter() - t0) * 1e3
+    assert np.array_equal(idx, want_idx), int((idx != want_idx).sum())
+    return {"phase": "native_host_ops", "library": str(native._LIB_PATH.relative_to(ROOT)), "loaded": loaded,
+            "build_and_load_s": load_s, "scan_points": len(pts), "cell": cell, "voxels": len(got[0]),
+            "points_on_cell_boundaries": int(apart.sum()), "voxels_left_out": len(touched),
+            "subsample_native_ms": native_sub_ms, "subsample_numpy_ms": numpy_sub_ms,
+            "subsample_max_gap": sub_gap, "nn_queries": len(queries), "nn_supports": len(supports),
+            "nn_native_ms": native_nn_ms, "nn_numpy_ms": numpy_nn_ms, "nn_indices_equal": True}
+
+
+def overlap_nn_ms(scene):
+    """Host ms of the frame overlap's 1-NN (2,048 scan points into the first
+    frame's pixel cloud, as ``compute_rgbd_overlap`` asks it): the native op at
+    the JAX package's cell (0.1 m) and at the library's own, and numpy."""
+    import numpy as np
+    from mvkpconv_tpu_torch.data import native, spheres
+    from mvkpconv_tpu_torch.ops.common import SHADOW_COORD
+
+    pix = spheres.SphereDataset._frame_pixel_clouds({k: scene[k][:1] for k in ("depth", "intrinsics", "poses")},
+                                                    stride=4)[0]
+    pix = pix[pix[:, 0] < SHADOW_COORD / 2]
+    base = scene["points"][np.random.RandomState(0).choice(len(scene["points"]), 2048, replace=False)]
+    out = {}
+    for name, cell in (("native_cell_0.1_ms", 0.1), ("native_own_cell_ms", None)):
+        t0 = time.perf_counter()
+        _, d2 = native.nearest_neighbor_1nn_native(base, pix, cell)
+        out[name] = (time.perf_counter() - t0) * 1e3
+        out.setdefault("d2", d2)
+        assert np.array_equal(d2, out["d2"]), name
+    t0 = time.perf_counter()
+    d2 = ((base[:, None] - pix[None]) ** 2).sum(-1).min(1)
+    out["numpy_ms"] = (time.perf_counter() - t0) * 1e3
+    out["within_0.1"] = int((out.pop("d2") < 0.01).sum())
+    assert out["within_0.1"] == int((d2 < 0.01).sum())
+    return dict(out, pixels=len(pix), base_points=len(base))
+
+
+def colmap_workspace(root, scan, views, hw, seed=11):
+    """A COLMAP workspace of the scan, as a user's reconstruction gives it:
+    ``sparse/cameras.bin`` (one PINHOLE camera), ``sparse/images.bin``
+    (world-to-camera quaternions in COLMAP's own frame), dense depth maps
+    ``depths/<image>.geometric.bin`` (the scan rendered by z-buffer at
+    ``hw``, each hole filled from its nearest rendered pixel, as a fused
+    COLMAP map has none), ``laser.ply`` and ``matrix_for_images.txt``: a
+    rotation about z and a translation taking COLMAP's frame into the scan's.
+    Returns the paths and the rendered views."""
+    import numpy as np
+    from scipy import ndimage
+    from mvkpconv_tpu_torch.data import colmap_io as cio
+    from mvkpconv_tpu_torch.data import synthetic
+    from mvkpconv_tpu_torch.utils.ply import write_ply
+
+    sparse, depths = root / "sparse", root / "depths"
+    sparse.mkdir(parents=True), depths.mkdir()
+    rendered = synthetic.render_views(scan, views, hw[0], hw[1], seed=seed)
+    c, s = np.cos(0.4), np.sin(0.4)
+    align = np.array([[c, -s, 0, 1.5], [s, c, 0, -0.75], [0, 0, 1, 0.2], [0, 0, 0, 1]])
+    np.savetxt(root / "matrix_for_images.txt", align)
+    K = rendered["intrinsics"][0]
+    cio.write_cameras_binary({1: cio.Camera(1, "PINHOLE", hw[1], hw[0],
+                                            np.array([K[0, 0], K[1, 1], K[0, 2], K[1, 2]], np.float64))},
+                             sparse / "cameras.bin")
+    images = {}
+    for v in range(views):
+        w2c = np.linalg.inv(np.linalg.inv(align) @ rendered["poses"][v].astype(np.float64))
+        images[v + 1] = cio.ColmapImage(v + 1, cio.rotmat2qvec(w2c[:3, :3]), w2c[:3, 3], 1, f"frame_{v:04d}.jpg")
+        depth = rendered["depth"][v]
+        nearest = ndimage.distance_transform_edt(depth <= 0, return_distances=False, return_indices=True)
+        cio.write_array(depth[tuple(nearest)], depths / f"frame_{v:04d}.jpg.geometric.bin")
+    cio.write_images_binary(images, sparse / "images.bin")
+    write_ply(root / "laser.ply", [scan["points"], (scan["colors"] * 255).astype(np.uint8)],
+              ["x", "y", "z", "red", "green", "blue"])
+    return {"sparse": sparse, "depths": depths, "laser": root / "laser.ply",
+            "alignment": root / "matrix_for_images.txt", "rendered": rendered}
+
+
+def seeded_run(root, cfg, dev):
+    """A run directory of the port: ``cfg``'s ``parameters.txt`` and a
+    checkpoint of seeded weights (no training)."""
+    from mvkpconv_tpu_torch.infer import make_model
+    from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
+
+    root.mkdir(parents=True)
+    cfg.save(root / "parameters.txt")
+    Checkpointer(root / "checkpoints").save({"step": 0, "model": make_model(cfg, dev, seed=0).state_dict()}, 0)
+    return root
+
+
+def colmap_argv(ws, run, votes, out_ply=None):
+    argv = ["--run", str(run), "--sparse", str(ws["sparse"]), "--depths", str(ws["depths"]),
+            "--laser", str(ws["laser"]), "--alignment", str(ws["alignment"]), "--votes", str(votes)]
+    return argv + (["--output-ply", str(out_ply)] if out_ply else [])
+
+
+def check_colmap_kernels(dev, ds, cfg, k1_rows, k2_rows):
+    """K1 and K2 against their plain versions at a batch of ``test_colmap``'s
+    own dataset (spheres of the dense scan, views posed from COLMAP's
+    quaternions through the alignment, depth resized by nearest index): K1
+    at the 13 selections of its pyramid (the level-0 conv timed), K2 at its
+    views with the bf16 candidates the lift hands it, timed, with the share
+    of (point, view) pairs that project inside the image."""
+    import torch
+    from mvkpconv_tpu_torch.data.spheres import device_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.ops.sampling import grid_subsample
+    from mvkpconv_tpu_torch.ops.unproject import project_to_views, unproject_depth, window_anchors
+
+    batch = batch_to_device(device_batch(ds.sample_batch()), dev)
+    spec = cfg.pyramid_spec()
+    p0, m0 = batch["points"], batch["mask"]
+    levels = [(p0, m0)]
+    for lv in range(1, spec.num_levels):
+        sub = grid_subsample(levels[-1][0], spec.cell_size(lv), spec.num_points[lv], mask=levels[-1][1])
+        levels.append((sub.points, sub.mask))
+    for name, q, sup, r, k in forward_k1_calls(spec, levels):
+        check_k1(f"{name}_colmap", q, sup, r, k, k1_rows, timed=name == "k1_L0_conv")
+    image_xyz, _ = unproject_depth(batch["depth"], batch["intrinsics"], batch["poses"])
+    u, v = project_to_views(p0, batch["intrinsics"], batch["poses"])
+    w = cfg.pixel_window
+    inside = (u >= 0) & (u < cfg.image_width) & (v >= 0) & (v < cfg.image_height) & m0[:, None, :]
+    iu0 = window_anchors(u, cfg.image_width, w).contiguous()
+    iv0 = window_anchors(v, cfg.image_height, w).contiguous()
+    check_k2("k2_colmap_bfloat16", p0, image_xyz.to(torch.bfloat16).contiguous(), iu0, iv0, w, cfg.pixel_knn,
+             k2_rows, in_view=float(inside.sum()) / float(m0.sum() * inside.shape[1]),
+             real_points=int(m0.sum()))
+
+
+def check_test_colmap(dev, smi, tmp, scan, ws, k1_rows, k2_rows):
+    """``tools/test_colmap.main`` at the training CLI's default configuration
+    on the workspace, on the card: K1 13 calls (26 launches) and K2 once a
+    forward, no K3 or K4; the prediction PLY re-read, one label in [0, C) per
+    point of the subsampled scan; host seconds of the scene's assembly and of
+    the dataset's construction, forwards, ms a forward, device busy a
+    forward, peak memory, the spheres' fill of N0."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data import colmap_io, spheres
+    from mvkpconv_tpu_torch.data.spheres import device_batch
+    from mvkpconv_tpu_torch.eval import voting
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.tools import test_colmap
+    from mvkpconv_tpu_torch.training import steps
+    from mvkpconv_tpu_torch.utils.ply import read_ply
+
+    cfg = cli_config()
+    run = seeded_run(tmp / "colmap_run", cfg, dev)
+    out_ply = tmp / "colmap_pred.ply"
+    with recorded((colmap_io, "load_colmap_scene"), (spheres.SphereDataset, "__init__"),
+                  (voting.VotingTester, "run"), (steps, "make_eval_step")) as calls:
+        reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        tester = test_colmap.main(colmap_argv(ws, run, COLMAP_VOTES, out_ply))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    forwards = launches["pixel_topk"]
+    k1 = 3 * cfg.num_layers - 2
+    assert forwards > 0 and launches["radius_topk"] == k1 * forwards, launches
+    assert launches["radius_topk_device"] == 2 * k1 * forwards, launches
+    assert launches["segsum"] == launches["segsum_plan"] == launches["kpconv_fused_fwd"] == 0, launches
+    probs = tester.probs[0]
+    ds = tester.ds
+    cloud = ds.scenes[0]["points"]
+    assert probs.shape == (len(cloud), cfg.num_classes) and np.isfinite(probs).all(), probs.shape
+    ply = read_ply(out_ply)
+    assert len(ply["pred"]) == len(cloud) and np.array_equal(np.stack([ply["x"], ply["y"], ply["z"]], 1), cloud)
+    assert 0 <= ply["pred"].min() and ply["pred"].max() < cfg.num_classes
+    assert np.array_equal(ply["pred"], probs.argmax(-1))
+    scene_s, scene = calls["load_colmap_scene"][0]
+    dataset_s = calls["__init__"][0][0]
+    sweep_s = calls["run"][0][0]
+    assert scene["depth"].shape == (COLMAP_VIEWS, cfg.image_height, cfg.image_width), scene["depth"].shape
+    # the poses came back in the scan's frame: align @ cam_to_world
+    pose_gap = float(np.abs(scene["poses"] - ws["rendered"]["poses"]).max())
+    assert pose_gap < 1e-4, pose_gap
+    eval_step = calls["make_eval_step"][0][1]
+    check_colmap_kernels(dev, ds, cfg, k1_rows, k2_rows)
+    tb = batch_to_device(device_batch(ds.sample_batch()), dev)
+    ms_forward = cuda_ms(lambda: eval_step(tb), reps=5)
+    busy = device_ms(lambda: eval_step(tb), reps=3)
+    counts = ds.sphere_counts
+    row = {"phase": "test_colmap_full", "config": "train_scannet --fusion early defaults (ARCHITECTURE_DEEPER, "
+           "width 128, B=5, N0=16384, K=34, V=5, 120x160, f32), seeded weights", "votes": COLMAP_VOTES,
+           "scan_points": len(scan["points"]), "subsampled_points": len(cloud), "images": COLMAP_VIEWS,
+           "depth_hw": list(COLMAP_HW), "pose_gap": pose_gap, "seconds": seconds,
+           "scene_assembly_s": scene_s, "dataset_construction_s": dataset_s, "sweep_s": sweep_s,
+           "forwards": forwards, "sweep_ms_per_forward": sweep_s / forwards * 1e3,
+           "ms_per_forward": ms_forward, "device_busy_ms_per_forward": busy, "peak_mem_gib": peak,
+           "sphere_counts_mean": float(np.mean(counts)), "spheres": len(counts),
+           "budget_filled": float(np.mean(np.minimum(counts, cfg.num_points[0]))) / cfg.num_points[0],
+           "launches": launches, "launches_per_forward": {k: launches[k] / forwards for k in
+                                                          ("radius_topk", "radius_topk_device", "pixel_topk")},
+           "pred_classes": int(len(np.unique(ply["pred"]))), "overlap_nn": overlap_nn_ms(scene), "card": smi}
+    emit(row)
+    return launches
+
+
+def check_colmap_parity(dev, tmp, ws):
+    """``test_colmap`` on the card against ``--device cpu`` on the same
+    workspace at a small configuration (3 levels, width 32, N0 1024, B=2, 3
+    views of 120x160), the same seeded weights, f32, TF32 off: the spheres
+    are the same by construction (the dataset's own seed); the accumulated
+    probabilities within 1e-4 of their largest, the labels equal except
+    where the two best classes lie within that bound (counted)."""
+    import numpy as np
+    from mvkpconv_tpu_torch.tools import test_colmap
+    from mvkpconv_tpu_torch.training.config import KPConfig
+
+    small = cli_config().replace(
+        architecture=("simple", "resnetb", "resnetb_strided", "resnetb", "resnetb_strided", "resnetb",
+                      "nearest_upsample", "unary", "nearest_upsample", "unary"),
+        num_points=(1024, 256, 64), conv_neighbors=(16,) * 3, pool_neighbors=(16,) * 2,
+        first_features_dim=32, num_views=3, batch_num=2)
+    assert isinstance(small, KPConfig)
+    run = seeded_run(tmp / "colmap_parity_run", small, "cpu")
+    argv = colmap_argv(ws, run, PARITY_VOTES)
+    reset_launches()
+    t0 = time.perf_counter()
+    card = test_colmap.main(argv)
+    card_s = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    cpu = test_colmap.main(argv + ["--device", "cpu"])
+    cpu_s = time.perf_counter() - t0
+    got, want = card.probs[0], cpu.probs[0]
+    scale = float(np.abs(want).max())
+    gap = float(np.abs(got - want).max())
+    top2 = np.sort(want, -1)[:, -2:]
+    near_tie = top2[:, 1] - top2[:, 0] <= PARITY_REL * scale
+    covered = want.sum(-1) > 0  # points some sphere reached
+    differ = got.argmax(-1) != want.argmax(-1)
+    emit({"phase": "test_colmap_parity", "config": "3 levels, width 32, N0=1024, B=2, 3 views of 120x160, f32, "
+          "TF32 off", "votes": PARITY_VOTES, "forwards": launches["pixel_topk"], "card_s": card_s, "cpu_s": cpu_s,
+          "spheres_equal": card.ds.sphere_counts == cpu.ds.sphere_counts, "max_abs_gap": gap, "prob_max": scale,
+          "gap_over_allowance": gap / (PARITY_REL * scale), "points": len(want), "covered": int(covered.sum()),
+          "labels_differ": int(differ.sum()), "near_ties_covered": int((near_tie & covered).sum()),
+          "labels_differ_off_ties": int((differ & ~near_tie).sum()),
+          "launches": launches})
+    assert launches["pixel_topk"] > 0 and launches["radius_topk"] == 7 * launches["pixel_topk"], launches
+    assert card.ds.sphere_counts == cpu.ds.sphere_counts
+    assert scale > 0 and gap <= PARITY_REL * scale, (gap, scale)
+    assert not (differ & ~near_tie).any(), int((differ & ~near_tie).sum())
+
+
+def check_custom_dataset(dev, smi, tmp, k1_rows, k2_rows):
+    """The native host ops on a scan of 1,000,000 points, then test_colmap on
+    a COLMAP workspace of it: at full width with PyTorch's TF32 defaults, as
+    a user runs it, then card against CPU with TF32 off."""
+    from mvkpconv_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    scan = synthetic.make_scene(seed=11, num_points=SCAN_POINTS)
+    scan_s = time.perf_counter() - t0
+    row = check_native_host_ops(scan, cli_config().first_subsampling_dl)
+    emit(row)
+    t0 = time.perf_counter()
+    ws = colmap_workspace(tmp / "colmap", scan, COLMAP_VIEWS, COLMAP_HW)
+    emit({"phase": "colmap_workspace", "scan_s": scan_s, "workspace_s": time.perf_counter() - t0,
+          "images": COLMAP_VIEWS, "depth_hw": list(COLMAP_HW)})
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = True  # as a user runs the tool
+    try:
+        launches = check_test_colmap(dev, smi, tmp, scan, ws, k1_rows, k2_rows)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    check_colmap_parity(dev, tmp, ws)
+    return {"test_colmap": launches}
+
+
 def main() -> int:
     import torch
 
@@ -2264,9 +2670,14 @@ def main() -> int:
         mvpnet_paths = check_mvpnet_workflow(dev, smi, Path(tmp), mv_scenes, index_ms, pre_shapes)
         torch.backends.cudnn.allow_tf32 = False
     mvpnet_parity = check_mvpnet_parity(dev, smi)
+    # ---- custom-dataset inference: the native host ops, test_colmap on a
+    # COLMAP workspace of a 1,000,000-point scan (PyTorch's TF32 defaults),
+    # then card against CPU (TF32 off)
+    with tempfile.TemporaryDirectory() as tmp:
+        custom_paths = check_custom_dataset(dev, smi, Path(tmp), k1_rows, k2_rows)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
                "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths,
-               **mvpnet_paths, **mvpnet_parity}
+               **mvpnet_paths, **mvpnet_parity, **custom_paths}
 
     def path_launches(*names):
         """Each full-width run's launches of a kernel, over its forwards or steps."""
@@ -2281,6 +2692,8 @@ def main() -> int:
     k2_mvpnet = next(r for r in k2_rows if r["phase"] == "k2_mvpnet_float32")
     k2_pre = [r for r in k2_rows if r["phase"].startswith("k2_precompute_")]
     k3_pn2 = [r for r in k3_rows if r["phase"].startswith("k3_pn2_")]
+    k1_colmap = next(r for r in k1_rows if r["phase"] == "k1_L0_conv_colmap")
+    k2_colmap = next(r for r in k2_rows if r["phase"] == "k2_colmap_bfloat16")
 
     def k4_entry(name, part, count):
         return {"name": name, "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/kpconv.cu",
@@ -2299,7 +2712,9 @@ def main() -> int:
          "launches_by_path": path_launches("radius_topk", "radius_topk_device"),
          "max_abs_err": max(r["max_d2_gap"] for r in k1_rows + k1_adv_rows),
          "ms": l0["ms"], "plain_ms": l0["plain_ms"], "bound_ms": l0["bound_ms"],
-         "bound_by": l0["bound_by"], "library_ms": None},
+         "bound_by": l0["bound_by"], "library_ms": None,
+         "colmap_shape": {x: k1_colmap[x] for x in ("b", "nq", "ns", "k", "ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "pairs_in_radius", "rows_differ")}},
         {"name": "pixel_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pixel_select.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/pixel_select.py:97",
          "launches": launches["pixel_topk"], "launches_by_path": path_launches("pixel_topk"),
@@ -2312,7 +2727,9 @@ def main() -> int:
                                                      "bound_ms", "bound_by", "rows_differ")},
          "precompute_shape": [{x: r.get(x) for x in ("phase", "b", "n", "real_points", "views", "hw", "window", "k",
                                                      "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
-                                                     "rows_differ", "max_d2_gap")} for r in k2_pre]},
+                                                     "rows_differ", "max_d2_gap")} for r in k2_pre],
+         "colmap_shape": {x: k2_colmap[x] for x in ("b", "n", "real_points", "views", "hw", "window", "dtype", "ms",
+                                                     "plain_ms", "bound_ms", "bound_by", "rows_differ", "in_view")}},
         {"name": "segsum", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/segsum.cu",
          "replaces": "mvkpconv_tpu/ops/pallas/segsum.py:284",
          "launches": train_launches["segsum"], "plan_launches": train_launches["segsum_plan"],

@@ -1,10 +1,12 @@
 """Sphere-sampling dataset: potentials, packing, feature assembly, views.
 
-A copy of ``mvkpconv_tpu/data/spheres.py`` without its native C++ host ops
-(``mvkpconv_tpu/data/native.py``, not ported): the voxel subsample and the
-frame-overlap 1-NN take that module's numpy fallbacks, so a dataset made
-from the same scenes and seed gives the batches the JAX package gives with
-its fallbacks (``tests/test_torch_data.py`` holds them equal).
+A copy of ``mvkpconv_tpu/data/spheres.py``: the voxel subsample and the
+frame-overlap 1-NN take the native C++ host ops (``data/native.py``) where
+they load, and their numpy fallbacks elsewhere, as the original does (the
+1-NN with the hash grid's own cell size: the same distances, see
+``compute_rgbd_overlap``). A dataset made from the same scenes and seed
+gives the batches the JAX package gives, both on the native ops or both on
+the fallbacks (``tests/test_torch_data.py``, ``tests/test_torch_native.py``).
 
 Host-side re-design of the reference's production dataset
 (KPConv-PyTorch/datasets/ScanNet_sphere_color.py, 1862 LoC): the stateful,
@@ -39,8 +41,15 @@ from mvkpconv_tpu_torch.ops.common import SHADOW_COORD
 
 def grid_subsample_np(points, colors, labels, cell: float, num_classes: int = 20):
     """Host-side voxel barycenter subsample (one-off per scene at load time,
-    mirroring load_subsampled_clouds' cached first-run subsample :880),
-    vectorized numpy."""
+    mirroring load_subsampled_clouds' cached first-run subsample :880).
+
+    Uses the native C++ implementation (csrc/host_ops.cpp) when available;
+    falls back to vectorized numpy."""
+    from mvkpconv_tpu_torch.data.native import grid_subsample_native
+
+    native = grid_subsample_native(points, colors, labels, cell, num_classes)
+    if native is not None:
+        return native
     origin = np.floor(points.min(0) / cell)
     vox = (np.floor(points / cell) - origin).astype(np.int64)
     key = (vox[:, 0] << 40) + (vox[:, 1] << 20) + vox[:, 2]
@@ -102,11 +111,13 @@ def compute_rgbd_overlap(
     (get_rgbd_overlap_subcloud.py:68-138: sample base points, mark those
     with an unprojected pixel within 0.1 m per frame) so per-sample frame
     selection is a tiny greedy over base points instead of per-pixel
-    distance sweeps. The 1-NN is a brute-force numpy sweep per frame.
+    distance sweeps. Uses the native hash-grid 1-NN when available.
 
     Returns:
       (base (nb, 3) float32, overlap (F, nb) bool).
     """
+    from mvkpconv_tpu_torch.data.native import nearest_neighbor_1nn_native
+
     clouds = SphereDataset._frame_pixel_clouds(scene, stride=stride)
     pts = scene["points"]
     sel = rng.choice(len(pts), min(n_base, len(pts)), replace=False)
@@ -118,7 +129,16 @@ def compute_rgbd_overlap(
         if len(pix) == 0:
             cols.append(np.zeros(len(base), bool))
             continue
-        d2 = ((base[:, None] - pix[None]) ** 2).sum(-1).min(1)
+        # the hash grid's own cell (the pixels' mean spacing), where the JAX
+        # package passes overlap_radius: the 1-NN is exact for any cell, so
+        # the distances are the same bits, but at 0.1 m the ring search
+        # walks up to 64 rings of cells for each base point outside the
+        # frame, 20-300x numpy's time (PERF.md, chip_smoke.py overlap_nn)
+        res = nearest_neighbor_1nn_native(base, pix)
+        if res is None:
+            d2 = ((base[:, None] - pix[None]) ** 2).sum(-1).min(1)
+        else:
+            _, d2 = res
         cols.append(d2 < overlap_radius**2)
     return base, np.stack(cols)
 

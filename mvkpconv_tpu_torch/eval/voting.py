@@ -116,10 +116,14 @@ class VotingTester:
             ev.update(pred, scene["labels"])
         return ev
 
-    def save_artifacts(self, out_dir, prefix: str = "") -> None:
+    def save_artifacts(
+        self, out_dir, prefix: str = "", html: bool = False,
+        class_names=None,
+    ) -> None:
         """Dump per-scene prediction and potentials PLYs (tester.py:320-365:
         predictions/probs plys every vote milestone, potentials clouds).
-        The JAX package's HTML viewer (``html=True`` there) is not ported."""
+        With ``html=True`` also writes a standalone interactive viewer per
+        scene (pred/gt/error clouds — `utils/html_viewer.py`)."""
         from pathlib import Path
 
         from mvkpconv_tpu_torch.utils.visualize import (
@@ -142,6 +146,19 @@ class VotingTester:
                 self.ds.pot_points[i],
                 self.ds.potentials[i],
             )
+            if html:
+                from mvkpconv_tpu_torch.utils.html_viewer import (
+                    prediction_viewer_html,
+                )
+
+                prediction_viewer_html(
+                    out / f"{prefix}{name}_viewer.html",
+                    scene["points"],
+                    probs.argmax(-1),
+                    scene.get("labels"),
+                    class_names=class_names,
+                    title=str(name),
+                )
 
     def score_reprojected(
         self, full_scenes: Sequence[Dict[str, np.ndarray]]

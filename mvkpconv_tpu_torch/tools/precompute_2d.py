@@ -2,11 +2,10 @@
 (``mvkpconv_tpu/tools/precompute_2d.py``; the reference's offline feature
 dump, mvpnet/models/mvpnet_3d.py:346-406): each scene subsampled, its
 frames through the trained UNet of a ``train_2d`` run (``model_best.pt``,
-else the latest ``ckpt_*.pt``), the points' lifted features attached as
-``feature_2d3d`` (``eval/precompute.py``: kernel K2 per 4,096-point chunk),
-the frames dropped. ``MVKPConv`` takes such scenes in place of its in-graph
-lift. Reading the JAX package's ``.msgpack`` checkpoints is not ported
-(ROADMAP queue 1).
+else the latest ``ckpt_*.pt``; or a JAX ``train_2d`` run's ``.msgpack``),
+the points' lifted features attached as ``feature_2d3d``
+(``eval/precompute.py``: kernel K2 per 4,096-point chunk), the frames
+dropped. ``MVKPConv`` takes such scenes in place of its in-graph lift.
 
 Runs on the first CUDA device unless ``--device`` names another.
 

@@ -1,7 +1,8 @@
 """Standalone evaluation of a trained 2D UNet-ResNet34 checkpoint
 (``mvkpconv_tpu/tools/test_2d.py``; the reference's mvpnet/test_2d.py): loads
 ``parameters.txt`` and the latest checkpoint (``--best``: ``model_best.pt``)
-of a ``train_2d`` output directory, sweeps every frame of ``--data`` once and
+of a ``train_2d`` output directory (the port's, or the JAX package's with
+``.msgpack`` checkpoints), sweeps every frame of ``--data`` once and
 prints the Evaluator's per-class table, also written to
 ``test_2d_IoUs.txt``. On the validation scenes of the run it reproduces the
 trainer's last ``val_miou``.
@@ -26,14 +27,14 @@ def main(argv=None):
     add_common_args(ap)
     ap.add_argument("--run", required=True, help="train_2d output dir")
     ap.add_argument("--best", action="store_true",
-                    help="score model_best.pt instead of the latest checkpoint")
+                    help="score model_best.pt (.msgpack) instead of the latest checkpoint")
     args = ap.parse_args(argv)
 
     from mvkpconv_tpu_torch.data.chunks import Frames2DDataset
     from mvkpconv_tpu_torch.eval.eval2d import evaluate_frames
     from mvkpconv_tpu_torch.infer import batch_to_device, make_model, resolve_device
-    from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
     from mvkpconv_tpu_torch.training.config import KPConfig
+    from mvkpconv_tpu_torch.training.jax_checkpoint import restore_run
     from mvkpconv_tpu_torch.training.steps import make_eval_step
 
     device = resolve_device(args.device)
@@ -46,12 +47,10 @@ def main(argv=None):
         raise SystemExit("no frames in --data (need rendered views)")
 
     model = make_model(cfg, device, seed=args.seed, kind="unet2d")
-    ck = Checkpointer(run / "checkpoints")
-    restored = ck.restore_best() if args.best else ck.restore()
+    restored = restore_run(model, run / "checkpoints", best=args.best)
     if restored is None:
         raise SystemExit(f"no {'best ' if args.best else ''}checkpoint in {run}")
-    model.load_state_dict(restored["model"])
-    print(f"evaluating step-{restored['step']} {'best ' if args.best else ''}checkpoint "
+    print(f"evaluating step-{restored[0]} {'best ' if args.best else ''}checkpoint "
           f"over {len(ds)} frames")
     eval_step = make_eval_step(model, cfg)
     ev = evaluate_frames(lambda b: eval_step(batch_to_device(b, device)).cpu().numpy(), ds,

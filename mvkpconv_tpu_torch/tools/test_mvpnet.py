@@ -5,7 +5,8 @@ each scene, each chunk resampled to ``--num-points``; the per-point
 probabilities are accumulated onto the full cloud by ``point_indices`` and
 averaged by coverage; the Evaluator's class table over the covered points.
 The chunks go through the model ``cfg.batch_num`` at a time (eval-mode BN:
-a chunk's result does not depend on its batch).
+a chunk's result does not depend on its batch). ``--run`` may be a run
+directory of the port or of the JAX package (``.msgpack`` checkpoints).
 
 Runs on the first CUDA device unless ``--device`` names another.
 
@@ -37,8 +38,8 @@ def main(argv=None):
     from mvkpconv_tpu_torch.eval.evaluator import Evaluator
     from mvkpconv_tpu_torch.infer import batch_to_device, make_model, resolve_device
     from mvkpconv_tpu_torch.tools.train_mvpnet import chunk_batch
-    from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
     from mvkpconv_tpu_torch.training.config import KPConfig
+    from mvkpconv_tpu_torch.training.jax_checkpoint import restore_run
     from mvkpconv_tpu_torch.training.steps import make_eval_step
 
     device = resolve_device(args.device)
@@ -50,10 +51,8 @@ def main(argv=None):
     sliding = SlidingChunks(ds, stride=args.stride)
 
     model = make_model(cfg, device, seed=args.seed, kind="mvpnet")
-    restored = Checkpointer(run / "checkpoints").restore()
-    if restored is None:
+    if restore_run(model, run / "checkpoints") is None:
         raise SystemExit(f"no checkpoint under {run}/checkpoints")
-    model.load_state_dict(restored["model"])
     eval_step = make_eval_step(model, cfg)
 
     ev = Evaluator(ignore_label=cfg.ignore_label)

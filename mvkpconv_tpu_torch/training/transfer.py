@@ -5,9 +5,9 @@ UNet, such as a fusion model's ``net_2d`` (the reference's
 architectures_sphere.py:226-237).
 
 A 2D run's checkpoint is the port's own format (``training/checkpoint.py``)
-whose ``model`` entry is the ``UNetResNet34``'s ``state_dict``. Reading the
-JAX package's ``.msgpack`` checkpoints is not ported yet (ROADMAP queue 1,
-item 5).
+whose ``model`` entry is the ``UNetResNet34``'s ``state_dict``, or, in a
+run directory of the JAX package's ``train_2d``, its ``.msgpack``
+``TrainState`` (``training/jax_checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from mvkpconv_tpu_torch.training.checkpoint import BEST, Checkpointer
+from mvkpconv_tpu_torch.training.jax_checkpoint import jax_checkpoint_path, load_jax_checkpoint
 
 
 def load_2d_checkpoint(unet: nn.Module, run_dir) -> Path:
@@ -26,6 +27,10 @@ def load_2d_checkpoint(unet: nn.Module, run_dir) -> Path:
     returns the file read. Raises where the checkpoint's keys or shapes
     differ from the UNet's."""
     ck = Checkpointer(Path(run_dir) / "checkpoints")
+    path = jax_checkpoint_path(ck.dir, best=True) or jax_checkpoint_path(ck.dir)
+    if path is not None:
+        load_jax_checkpoint(unet, path)
+        return path
     path = ck.dir / BEST
     if not path.exists():
         path = ck.latest_path()

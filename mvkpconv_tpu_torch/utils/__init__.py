@@ -1,1 +1,1 @@
-"""PLY output of the port."""
+"""PLY IO, prediction artifacts and the standalone HTML viewer of the port."""

@@ -4,7 +4,7 @@
 same inputs; ``save_2d_panel`` with the same pixels). The JAX package writes
 the panel with PIL; the port writes the PNG with the standard library
 (``zlib``, ``struct``), so the card's machine needs no imaging package. The
-HTML viewer is not ported (ROADMAP queue 1)."""
+interactive HTML viewer is ``utils/html_viewer.py``."""
 
 from __future__ import annotations
 

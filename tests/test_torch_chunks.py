@@ -3,8 +3,8 @@
 original: ``ChunkDataset`` batches (training, with and without views,
 colors as features), the sliding chunks of a scene, ``Frames2DDataset``
 batches and its ordered sweep, and the greedy frame choice. Both run the
-same numpy from the same seed, the JAX side on its host ops' numpy
-fallbacks (the port has no native library); equality is exact.
+same numpy from the same seed, both on their host ops' numpy fallbacks
+(each native library switched off); equality is exact.
 """
 
 import numpy as np

@@ -1,8 +1,9 @@
 """PyTorch port: the two CLIs end to end on the CPU (``--device cpu``): train
 MV-KPConv early fusion for 2 steps with the UNet trained end to end
 (``tools/train_scannet``), then the voting test of its checkpoint at 0.5
-votes (``tools/test_models``); without ``--device`` on a host without a
-card both raise before they load anything.
+votes (``tools/test_models``) with ``--html`` (the viewer beside the PLYs);
+without ``--device`` on a host without a card both raise before they load
+anything.
 """
 
 import json
@@ -49,13 +50,12 @@ def test_train_then_test_early_fusion_on_cpu(tmp_path):
     assert KPConfig.load(run / "parameters.txt").fusion == "early"
 
     ev, full = test_models.main(["--run", str(run), "--data", "synthetic:1", "--votes", "0.5",
-                                 "--device", "cpu"])
+                                 "--html", "--device", "cpu"])
     assert 0 <= ev.miou <= 1 and 0 <= full.miou <= 1
     assert full.confusion.sum() > ev.confusion.sum() > 0
     assert sorted(p.name for p in (run / "test_preds").iterdir()) == [
-        "scene000_potentials.ply", "scene000_pred.ply"]
-    with pytest.raises(NotImplementedError, match="html_viewer"):
-        test_models.main(["--run", str(run), "--html", "--device", "cpu"])
+        "scene000_potentials.ply", "scene000_pred.ply", "scene000_viewer.html"]
+    assert "<canvas" in (run / "test_preds" / "scene000_viewer.html").read_text()
 
 
 def test_clis_without_device_raise_on_a_host_without_a_card(tmp_path, monkeypatch):

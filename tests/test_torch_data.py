@@ -4,9 +4,11 @@ the PLY writers against the JAX package's numpy modules.
 The port's copies must give the same arrays from the same seed: synthetic
 scenes of both families, rendered views, ``SphereDataset`` batches (three
 in a row, training with augmentation and evaluation, with views) and its
-potentials, feature assembly, and the same PLY bytes. The port has no
-native C++ host ops, so the JAX side runs with its numpy fallbacks (the
-native library made unavailable for the test). Equality is exact.
+potentials, feature assembly, and the same PLY bytes. Both packages run on
+their numpy host ops here (each native library made unavailable for the
+test: the native subsample emits voxels in another order than numpy's);
+``tests/test_torch_native.py`` holds the two native libraries against each
+other. Equality is exact.
 """
 
 import pickle
@@ -23,6 +25,7 @@ from mvkpconv_tpu.data import synthetic as jax_synthetic  # noqa: E402
 from mvkpconv_tpu.training.config import KPConfig as JaxConfig  # noqa: E402
 from mvkpconv_tpu.utils import visualize as jax_visualize  # noqa: E402
 from mvkpconv_tpu_torch.data import meta, spheres, synthetic  # noqa: E402
+from mvkpconv_tpu_torch.data import native  # noqa: E402
 from mvkpconv_tpu_torch.data.prefetch import prefetch  # noqa: E402
 from mvkpconv_tpu_torch.data.scannet_io import load_split  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
@@ -39,8 +42,9 @@ SMALL = dict(
 
 @pytest.fixture
 def numpy_fallbacks(monkeypatch):
-    """The JAX package's host ops without their native library."""
+    """Both packages' host ops without their native libraries."""
     monkeypatch.setattr(jax_native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_load", lambda: None)
 
 
 def assert_same(got, want, what=""):

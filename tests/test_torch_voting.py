@@ -2,7 +2,7 @@
 package's, on the same oracle ``predict_fn``.
 
 Both packages sample the same sphere batches from the same scenes and seed
-(the JAX side on its numpy host ops, as the port has no native ones), and
+(both on their numpy host ops, each native library switched off), and
 both are given one numpy function of the batch as the model: so the
 probability buffers, the potentials, the confusion and every score must be
 equal exactly, for the training-time ``validation_sweep`` and for the
@@ -21,7 +21,7 @@ from mvkpconv_tpu.data import synthetic as jax_synthetic  # noqa: E402
 from mvkpconv_tpu.eval import evaluator as jax_evaluator  # noqa: E402
 from mvkpconv_tpu.eval import voting as jax_voting  # noqa: E402
 from mvkpconv_tpu.training.config import KPConfig as JaxConfig  # noqa: E402
-from mvkpconv_tpu_torch.data import spheres, synthetic  # noqa: E402
+from mvkpconv_tpu_torch.data import native, spheres, synthetic  # noqa: E402
 from mvkpconv_tpu_torch.eval import evaluator, voting  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 
@@ -43,6 +43,7 @@ def oracle(batch):
 
 def datasets(monkeypatch):
     monkeypatch.setattr(jax_native, "_load", lambda: None)
+    monkeypatch.setattr(native, "_load", lambda: None)
     scenes = [synthetic.make_scene(seed=s, num_points=6000) for s in (100, 101)]
     jscenes = [jax_synthetic.make_scene(seed=s, num_points=6000) for s in (100, 101)]
     return (spheres.SphereDataset(scenes, KPConfig(**CFG), training=False, seed=1),
