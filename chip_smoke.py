@@ -199,6 +199,32 @@ Phases, each printed as one JSON line:
      probabilities within 1e-4 of their largest, labels equal except at
      near-ties (counted).
 
+ 23. resume_jax_run: a run directory in the JAX package's layout (the flax
+     ``TrainState`` msgpack that ``training/jax_checkpoint.py`` writes, of 2
+     CPU steps at phase 5's configuration, the UNet frozen, 'banded', the
+     learning rate halved at step 2) resumed by ``Trainer.maybe_resume`` on
+     the card and on the CPU, then one step each, f32, TF32 off: the
+     momentum restored bit for bit, the loss within 1e-5 relative, every
+     parameter and momentum buffer within phase 8's allowance, the decayed
+     learning rate and the schedule's count equal, K1 13, K2 1 and K3 once
+     a trunk gather;
+ 24. inspect_deform_full: ``eval/deform_inspect.inspect_deformable`` at
+     ``infer.deform_config()`` on the bench batch: 5 deformable layers,
+     finite statistics, a PLY and a viewer each, K1 13 calls (26 launches)
+     and K2 1 in its forward; its seconds beside the forward's ms;
+ 25. export_full, export_full_fused: ``eval/export.export_inference`` at the
+     bench configuration on both paths, saved and loaded back by
+     ``ServingModel``, 5 calls: K1 13 (26), K2 1 and on the fused path K4's
+     forward 14 a call, through the ``mvkpconv::`` operators; the
+     probabilities equal the eager model's within 1e-6 of the largest, both
+     under ``torch.use_deterministic_algorithms`` (the spread without it is
+     printed); export and load seconds, artifact bytes, ms a call beside
+     the eager forward's, timed right after it, and phase 6's and 12's;
+ 26. measure_variants_tiny: ``tools/measure_variants --tiny`` on the card,
+     the KPFCNN row, then the early-fusion row (its 2D net pretrained and
+     frozen): the report's keys and protocols, each row's K1, K2 and K3
+     launches (K2 on the fusion row only).
+
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -2481,6 +2507,213 @@ def check_custom_dataset(dev, smi, tmp, k1_rows, k2_rows):
     return {"test_colmap": launches}
 
 
+# ---- a JAX run resumed, deformable inspection, the serving export through
+# the kernels' operators, the variant-accuracy matrix
+
+EXPORT_PROB_REL = 1e-6  # of the largest probability
+
+
+def allowance_over(got, want):
+    """Each tensor's largest |got − want| over the train-step allowance
+    (rtol 1e-3, atol 1e-5 · the largest |value| of all of ``want``)."""
+    atol = TRAIN_PARAM_ATOL_REL * max(float(v.abs().max()) for v in want.values())
+    return {k: float(((got[k].cpu() - v).abs() / (TRAIN_PARAM_RTOL * v.abs() + atol)).max())
+            for k, v in want.items()}
+
+
+def check_resume_jax_run(dev, small, tmp):
+    """A JAX-layout run directory (``training/jax_checkpoint.py``
+    ``write_jax_checkpoint``: the flax ``TrainState`` bytes of 2 CPU steps of
+    ``small``'s configuration, the UNet frozen, 'banded', lr decay 0.5 at
+    ``epoch_steps=2``) resumed by ``Trainer.maybe_resume`` on the card and on
+    the CPU, then one step each, f32, TF32 off: the restored momentum equal
+    bit for bit to what was written, the step's loss within 1e-5 relative,
+    every parameter and momentum buffer within the train-step allowance,
+    the learning rate (the decayed one) and the schedule's count equal, the
+    card's launches held to the plan."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.train import make_trainer
+    from mvkpconv_tpu_torch.training.jax_checkpoint import write_jax_checkpoint
+    from mvkpconv_tpu_torch.training.trainer import Trainer
+
+    cfg = small.replace(gather_transpose="banded", epoch_steps=2, lr_decay=0.5)
+    tb = make_batch(cfg, 2, np.random.RandomState(1))
+    src = make_trainer(cfg, "cpu", seed=1)
+    for _ in range(2):
+        src.step(batch_to_device(tb, "cpu"))
+    ck = tmp / "jax_run" / "checkpoints"
+    path = write_jax_checkpoint(ck / "ckpt_00000002.msgpack", src.model, src.optimizer, 2)
+    (ck / "last_checkpoint").write_text(path.name)
+    written = {n: src.optimizer.state[p]["momentum_buffer"] for n, p in src.model.named_parameters()
+               if p in src.optimizer.state}
+    sides = {}
+    for name, device, seed in (("cpu", "cpu", 3), ("card", dev, 4)):
+        setup = make_trainer(cfg, device, seed=seed)
+        trainer = Trainer(setup.step, setup.model, setup.optimizer, str(tmp / "jax_run"), cfg)
+        trainer.maybe_resume()
+        params = dict(setup.model.named_parameters())
+        restored = {n: setup.optimizer.state[params[n]]["momentum_buffer"] for n in written}
+        assert trainer.step == 2 and all(torch.equal(restored[n].cpu(), b) for n, b in written.items()), name
+        reset_launches()
+        loss = float(trainer.train_step(batch_to_device(tb, device))["loss"])
+        sides[name] = (trainer, loss, read_launches())
+    (cpu, want_loss, _), (card, got_loss, launches) = sides["cpu"], sides["card"]
+
+    def state(tr):
+        params = dict(tr.model.named_parameters())
+        bufs = {f"momentum:{n}": tr.optimizer.state[params[n]]["momentum_buffer"] for n in written}
+        return {**{n: p.detach() for n, p in params.items()}, **bufs}
+
+    over = allowance_over(state(card), state(cpu))
+    worst = max(over, key=over.get)
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    lrs = [[g["lr"] for g in tr.optimizer.param_groups] for tr in (card, cpu)]
+    counts = [[g["count"] for g in tr.optimizer.param_groups] for tr in (card, cpu)]
+    emit({"phase": "resume_jax_run", "config": "ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32, "
+          "f32, banded, UNet frozen, lr_decay 0.5 at epoch_steps 2", "file": path.name,
+          "file_bytes": path.stat().st_size, "momentum_buffers": len(written), "step_after": card.step + 1,
+          "loss_card": got_loss, "loss_cpu": want_loss, "loss_rel_err": loss_rel, "lr": lrs[0],
+          "count": counts[0], "err_over_allowance": over[worst], "worst": worst,
+          "outside": sum(r > 1.0 for r in over.values()), "tensors": len(over), "launches": launches})
+    assert np.isfinite(got_loss) and loss_rel <= TRAIN_LOSS_REL, "card/CPU resumed step losses disagree"
+    assert over[worst] <= 1.0, "card/CPU resumed states disagree"
+    assert lrs[0] == lrs[1] == [cfg.learning_rate * 0.5] and counts[0] == counts[1] == [3], (lrs, counts)
+    assert launches["radius_topk"] == 13 and launches["pixel_topk"] == 1, launches
+    assert launches["segsum"] == trunk_gathers(card.model), launches
+    return launches
+
+
+def check_inspect_deform(dev, raw, smi, tmp):
+    """``eval/deform_inspect.inspect_deformable`` at full width:
+    ``infer.deform_config()`` (blocks 9–13 deformable) with seeded weights
+    on the bench batch, on the card: 5 deformable layers, finite statistics,
+    a PLY and a viewer HTML each, K1 13 calls (26 launches) and K2 1 in its
+    forward, no K3 or K4; its seconds (forward, collection, files) beside
+    the ms of the same forward alone."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.eval.deform_inspect import inspect_deformable
+    from mvkpconv_tpu_torch.infer import batch_to_device, deform_config, infer, make_model
+
+    cfg = deform_config()
+    model = make_model(cfg, dev, seed=0)
+    inspect_deformable(model, raw, cfg, tmp / "deform_warmup")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = inspect_deformable(model, raw, cfg, tmp / "deform")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    batch = batch_to_device(raw, dev)
+    fwd_ms = cuda_ms(lambda: infer(model, batch), 5)
+    layers = summary["layers"]
+    emit({"phase": "inspect_deform_full", "config": config_label(cfg), "seconds": seconds,
+          "forward_ms": fwd_ms, "layers": layers, "plys": [Path(p).name for p in summary["plys"]],
+          "launches": launches, "card": smi})
+    assert len(layers) == 5 and len(summary["plys"]) == 5, layers
+    assert all(np.isfinite([s["mean_kp_radius"], s["max_kp_radius"], s["fit_fraction"]]).all() for s in layers)
+    assert all(Path(p).exists() and Path(p).with_suffix(".html").exists() for p in summary["plys"])
+    assert launches["radius_topk"] == 13 and launches["radius_topk_device"] == 26, launches
+    assert launches["pixel_topk"] == 1 and launches["segsum"] == launches["kpconv_fused_fwd"] == 0, launches
+    return launches
+
+
+def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5):
+    """``eval/export.export_inference`` of ``cfg`` at full width on the card
+    (seeded weights), saved, loaded back by ``ServingModel`` (the kernels'
+    operators, no model code) and called ``calls`` times: K1 13 (26
+    launches), K2 1 and, on the fused path, K4's forward once a conv block, a
+    call, all through the ``mvkpconv::`` operators; the probabilities equal
+    the eager model's within 1e-6 of the largest, both run under
+    ``torch.use_deterministic_algorithms`` (the pyramid's ``scatter_add_``
+    atomics part two runs of either by more: read as ``spread``); export
+    and load seconds, artifact bytes, ms a call beside the eager forward's
+    timed right after it (and beside ``full``'s)."""
+    import warnings
+
+    import torch
+    from mvkpconv_tpu_torch.eval.export import ServingModel, export_inference, save_exported
+    from mvkpconv_tpu_torch.infer import infer, make_model
+
+    model = make_model(cfg, dev, seed=0)
+    t0 = time.perf_counter()
+    data = export_inference(model, cfg)
+    export_s = time.perf_counter() - t0
+    path = save_exported(data, tmp / f"{phase}.pt2")
+    t0 = time.perf_counter()
+    served = ServingModel.load(path)
+    load_s = time.perf_counter() - t0
+    sb = {k: batch[k] for k in served.input_spec}
+    served(sb)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = served(sb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    launches = read_launches()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        torch.softmax(infer(model, batch), dim=-1)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / calls * 1e3
+    with torch.no_grad():
+        spread = float((out - torch.softmax(infer(model, batch), dim=-1)).abs().max())
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.no_grad():
+                want = torch.softmax(infer(model, batch), dim=-1)
+            got = served(sb)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    n_conv, _ = conv_blocks(model)
+    emit({"phase": phase, "config": config_label(cfg), "export_s": export_s, "load_s": load_s,
+          "artifact_bytes": len(data), "calls": calls, "ms_per_call": ms,
+          "eager_ms_per_call": eager_ms, "full_ms_per_forward": beside["ms_per_forward"], "launches": launches,
+          "max_abs_err": err, "max_prob": top, "limit": EXPORT_PROB_REL * top, "spread_nondeterministic": spread,
+          "device": str(served.device), "card": smi})
+    assert tuple(got.shape) == (cfg.batch_num, cfg.num_points[0], cfg.num_classes), got.shape
+    assert bool(torch.isfinite(got).all()) and err <= EXPORT_PROB_REL * top, "export/eager probabilities disagree"
+    assert launches["radius_topk"] == 13 * calls and launches["radius_topk_device"] == 26 * calls, launches
+    assert launches["pixel_topk"] == calls, launches
+    assert launches["kpconv_fused_fwd"] == (n_conv * calls if runs_k4(cfg) else 0), (launches, n_conv)
+    assert launches["segsum"] == 0, launches
+    return launches
+
+
+def check_measure_variants(dev, tmp):
+    """``tools/measure_variants.main --tiny`` on the card, row by row into
+    one ``--out``: the KPFCNN row (K1, K3; no K2), then the early-fusion
+    row (the 2D net pretrained 2 steps, frozen; K1, K2, K3); the report's
+    keys and protocols, each row's launches."""
+    from mvkpconv_tpu_torch.tools import measure_variants
+
+    paths = {}
+    argv = ["--tiny", "--steps", "2", "--steps-2d", "2", "--train-scenes", "1", "--val-scenes", "1",
+            "--out", str(tmp / "variants"), "--device", str(dev)]
+    for row in ("kpconv_baseline", "mvkpconv_early"):
+        reset_launches()
+        t0 = time.perf_counter()
+        res = measure_variants.main([*argv, "--only", row])
+        seconds = time.perf_counter() - t0
+        paths[f"measure_variants_{row}"] = launches = read_launches()
+        emit({"phase": "measure_variants_tiny", "row": row, "result": res[row], "seconds": seconds,
+              "launches": launches})
+        assert set(res[row]) == {"miou", "oa", "final_loss", "steps", "minutes", "protocol"}, res
+        assert res[row]["protocol"] == ("3d_only" if row == "kpconv_baseline" else "two_stage_frozen_2d")
+        assert launches["radius_topk"] > 0 and launches["segsum"] > 0, launches
+        assert (launches["pixel_topk"] > 0) == (row == "mvkpconv_early"), launches
+    return paths
+
+
 def main() -> int:
     import torch
 
@@ -2670,6 +2903,18 @@ def main() -> int:
         mvpnet_paths = check_mvpnet_workflow(dev, smi, Path(tmp), mv_scenes, index_ms, pre_shapes)
         torch.backends.cudnn.allow_tf32 = False
     mvpnet_parity = check_mvpnet_parity(dev, smi)
+    # ---- a JAX run resumed with its optimizer state, deformable inspection
+    # at full width, the serving export on both paths, the variant matrix
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        serving_paths = {"resume_jax_run": check_resume_jax_run(dev, small, tmp),
+                         "inspect_deform_full": check_inspect_deform(dev, raw, smi, tmp),
+                         "export_full": check_export("export_full", cfg, dev, batch, smi, full_row, tmp),
+                         "export_full_fused": check_export("export_full_fused", fused, dev, batch, smi,
+                                                           fused_row, tmp)}
+        torch.backends.cudnn.allow_tf32 = True  # as a user runs the tool
+        serving_paths.update(check_measure_variants(dev, tmp))
+        torch.backends.cudnn.allow_tf32 = False
     # ---- custom-dataset inference: the native host ops, test_colmap on a
     # COLMAP workspace of a 1,000,000-point scan (PyTorch's TF32 defaults),
     # then card against CPU (TF32 off)
@@ -2677,7 +2922,7 @@ def main() -> int:
         custom_paths = check_custom_dataset(dev, smi, Path(tmp), k1_rows, k2_rows)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
                "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths,
-               **mvpnet_paths, **mvpnet_parity, **custom_paths}
+               **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths}
 
     def path_launches(*names):
         """Each full-width run's launches of a kernel, over its forwards or steps."""

@@ -26,7 +26,10 @@ A deformable model's variables also carry the ``intermediates`` collection
 weights and is dropped.
 
 It raises on any flax leaf it did not use and on any torch parameter or
-buffer it did not set.
+buffer it did not set. :func:`jax_variables` is its inverse (the flax
+variables of a model of the port), and :func:`leaf_map` the table both
+walk, which the optimizer state's bridge (``training/jax_checkpoint.py``)
+walks too.
 """
 
 from __future__ import annotations
@@ -52,45 +55,40 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-@torch.no_grad()
-def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
-    """Fill ``model`` from ``{'params': ..., 'batch_stats': ...}`` (nested
-    dicts of numpy arrays, as ``jax.tree.map(np.asarray, variables)`` gives
-    them)."""
-    leaves = {
-        (col, key): val
-        for col in ("params", "batch_stats")
-        for key, val in _flatten(variables.get(col, {})).items()
-    }
-    extra_cols = set(variables) - {"params", "batch_stats", "intermediates"}
-    if extra_cols:
-        raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
-    used = set()
-    state = {}
+def _same(a):
+    return a
 
-    def take(col, key):
-        if (col, key) not in leaves:
-            raise KeyError(f"flax variables have no {col} leaf {key!r}")
-        used.add((col, key))
-        return leaves[(col, key)]
 
+# (torch → flax, flax → torch) layout changes; each is the other's inverse
+_LINEAR = (lambda w: w.T, lambda k: k.T)
+_CONV = (lambda w: w.transpose(2, 3, 1, 0), lambda k: k.transpose(3, 2, 0, 1))
+_CONV_T = (lambda w: w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1),
+           lambda k: k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+_AS_IS = (_same, _same)
+
+
+def leaf_map(model: nn.Module):
+    """Every tensor the bridge sets, as ``(torch state_dict key, flax
+    collection, flax key path 'a/b/leaf', (to_flax, to_torch))``, the layout
+    changes acting on numpy arrays."""
+    out = []
     for name, mod in model.named_modules():
         scope = name.replace(".", "/")
 
-        def put(attr, col, leaf, fn=lambda a: a):
+        def put(attr, col, leaf, fns=_AS_IS):
             key = f"{scope}/{leaf}" if scope else leaf
-            state[f"{name}.{attr}" if name else attr] = np.ascontiguousarray(fn(take(col, key)))
+            out.append((f"{name}.{attr}" if name else attr, col, key, fns))
 
         if isinstance(mod, nn.ConvTranspose2d):
-            put("weight", "params", "kernel", lambda k: k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+            put("weight", "params", "kernel", _CONV_T)
             if mod.bias is not None:
                 put("bias", "params", "bias")
         elif isinstance(mod, nn.Conv2d):
-            put("weight", "params", "kernel", lambda k: k.transpose(3, 2, 0, 1))
+            put("weight", "params", "kernel", _CONV)
             if mod.bias is not None:
                 put("bias", "params", "bias")
         elif isinstance(mod, nn.Linear):
-            put("weight", "params", "kernel", lambda k: k.T)
+            put("weight", "params", "kernel", _LINEAR)
             if mod.bias is not None:
                 put("bias", "params", "bias")
         elif isinstance(mod, BatchNorm) or (
@@ -106,8 +104,52 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             put("weights", "params", "weights")
             if mod.deformable:
                 put("offset_bias", "params", "offset_bias")
+    return out
 
-    unused = sorted(f"{c}:{k}" for c, k in set(leaves) - used)
+
+def nest(flat: Mapping[str, np.ndarray]) -> Dict:
+    """'a/b/leaf' keys → nested dicts."""
+    out: Dict = {}
+    for key, val in flat.items():
+        *path, leaf = key.split("/")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = val
+    return out
+
+
+@torch.no_grad()
+def jax_variables(model: nn.Module) -> Dict:
+    """The inverse of :func:`load_jax_variables`: ``{'params': ...,
+    'batch_stats': ...}`` of ``model`` as nested dicts of float32 numpy
+    arrays in the flax layout."""
+    state = model.state_dict()
+    flat = {"params": {}, "batch_stats": {}}
+    for key, col, fkey, (to_flax, _) in leaf_map(model):
+        flat[col][fkey] = np.ascontiguousarray(to_flax(state[key].detach().float().cpu().numpy()))
+    return {col: nest(leaves) for col, leaves in flat.items()}
+
+
+@torch.no_grad()
+def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Fill ``model`` from ``{'params': ..., 'batch_stats': ...}`` (nested
+    dicts of numpy arrays, as ``jax.tree.map(np.asarray, variables)`` gives
+    them)."""
+    leaves = {
+        (col, key): val
+        for col in ("params", "batch_stats")
+        for key, val in _flatten(variables.get(col, {})).items()
+    }
+    extra_cols = set(variables) - {"params", "batch_stats", "intermediates"}
+    if extra_cols:
+        raise ValueError(f"unexpected flax collections {sorted(extra_cols)}")
+    state = {}
+    for key, col, fkey, (_, to_torch) in leaf_map(model):
+        if (col, fkey) not in leaves:
+            raise KeyError(f"flax variables have no {col} leaf {fkey!r}")
+        state[key] = np.ascontiguousarray(to_torch(leaves.pop((col, fkey))))
+    unused = sorted(f"{c}:{k}" for c, k in leaves)
     if unused:
         raise ValueError(f"flax leaves not used by the bridge: {unused}")
     expected = model.state_dict()

@@ -30,7 +30,11 @@ for one) and it raises if either requires one. :func:`kpconv_fused_plain`
 gives all four through autograd.
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise.
+raise. The forward is the ``torch.library`` operator
+``mvkpconv::kpconv_fused_fwd`` (CPU kernel: the plain version; CUDA kernel:
+``csrc/kpconv.cu``; a fake kernel for ``torch.export``); ``bwd_x`` and
+``wf`` run only in a backward, which no exported program holds, and stay
+plain calls.
 """
 
 from __future__ import annotations
@@ -131,10 +135,16 @@ def _on_cpu(*tensors) -> bool:
     return False
 
 
-def kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
-    """The fused forward, (B, N, Cout) f32."""
-    if _on_cpu(neighb_rel, nx, kernel_pts, weights2d):
-        return kpconv_fused_plain(neighb_rel, nx, kernel_pts, weights2d, kp_extent)
+torch.library.define(
+    "mvkpconv::kpconv_fused_fwd",
+    "(Tensor neighb_rel, Tensor nx, Tensor kernel_pts, Tensor weights2d, float kp_extent) -> Tensor",
+)
+kpconv_fused_fwd_op = torch.ops.mvkpconv.kpconv_fused_fwd.default
+
+
+@torch.library.impl("mvkpconv::kpconv_fused_fwd", "cuda")
+def _kpconv_fused_fwd_cuda(neighb_rel, nx, kernel_pts, weights2d, kp_extent):
+    """The CUDA kernel of ``mvkpconv::kpconv_fused_fwd``."""
     check_args(neighb_rel, nx, kernel_pts, weights2d)
     from mvkpconv_tpu_torch.ops import _build
 
@@ -154,6 +164,22 @@ def kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) ->
         _build.check_launch("kpconv_fused_fwd", rc)
         kpconv_fused_fwd.launches += 1
     return out
+
+
+torch.library.impl("mvkpconv::kpconv_fused_fwd", "cpu", kpconv_fused_plain)
+
+
+@torch.library.register_fake("mvkpconv::kpconv_fused_fwd")
+def _kpconv_fused_fwd_fake(neighb_rel, nx, kernel_pts, weights2d, kp_extent):
+    dtype = torch.promote_types(neighb_rel.dtype, weights2d.dtype)
+    return nx.new_empty((nx.shape[0], nx.shape[1], weights2d.shape[1]), dtype=dtype)
+
+
+def kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
+    """The fused forward, (B, N, Cout) f32: the operator
+    ``mvkpconv::kpconv_fused_fwd``."""
+    _on_cpu(neighb_rel, nx, kernel_pts, weights2d)  # raises on mixed or other devices
+    return kpconv_fused_fwd_op(neighb_rel, nx, kernel_pts, weights2d, float(kp_extent))
 
 
 def kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, kp_extent: float,
@@ -253,5 +279,10 @@ class KPConvFused(torch.autograd.Function):
 
 def kpconv_fused(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
     """Fused rigid KPConv (linear influence, sum aggregation) → (B, N, Cout)
-    f32, differentiable in ``nx`` and ``weights2d``."""
+    f32, differentiable in ``nx`` and ``weights2d``. Where no gradient is
+    recorded it is the forward operator alone, which is what
+    ``torch.export`` of an inference program keeps."""
+    tensors = (neighb_rel, nx, kernel_pts, weights2d)
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent)
     return KPConvFused.apply(neighb_rel, nx, kernel_pts, weights2d, kp_extent)

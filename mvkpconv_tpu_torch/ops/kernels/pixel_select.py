@@ -10,9 +10,11 @@ bf16), in the difference form ((dx² + dy²) + dz², each step rounded). The
 winners come back as flat indices ``(iv0+dv)·W + iu0+du + v·H·W`` into the
 V·H·W pixel axis, (B, N, k) int32.
 
-CPU tensors take :func:`pixel_topk_plain` (k rounds of argmin and mask-out,
-the JAX package's ``minext`` algorithm); CUDA tensors launch
-``csrc/pixel_select.cu`` or raise.
+:func:`pixel_topk` calls the ``torch.library`` operator
+``mvkpconv::pixel_topk``, whose CPU kernel is :func:`pixel_topk_plain` (k
+rounds of argmin and mask-out, the JAX package's ``minext`` algorithm) and
+whose CUDA kernel launches ``csrc/pixel_select.cu``; its fake kernel gives
+the output's shape for ``torch.export``.
 """
 
 from __future__ import annotations
@@ -76,29 +78,16 @@ def check_args(points, image_xyz, iu0, iv0, window: int, k: int) -> None:
         raise ValueError("pixel_topk: tensors too large for 32-bit offsets")
 
 
-def pixel_topk(
-    points: torch.Tensor,
-    image_xyz: torch.Tensor,
-    iu0: torch.Tensor,
-    iv0: torch.Tensor,
-    window: int,
-    k: int,
-) -> torch.Tensor:
-    """Flat V·H·W indices of the k nearest candidate pixels per point.
+torch.library.define(
+    "mvkpconv::pixel_topk",
+    "(Tensor points, Tensor image_xyz, Tensor iu0, Tensor iv0, int window, int k) -> Tensor",
+)
+pixel_topk_op = torch.ops.mvkpconv.pixel_topk.default
 
-    Args:
-      points: (B, N, 3) float32.
-      image_xyz: (B, V, H, W, 3) float32 or bfloat16 pixel positions.
-      iu0, iv0: (B, V, N) int32 window corners, in bounds.
-      window: window side; k: neighbors (k ≤ V·window²).
-    """
-    v = image_xyz.shape[1]
-    if not 1 <= k <= v * window * window:
-        raise ValueError(f"pixel_topk: k={k} outside [1, V·window²={v * window * window}]")
-    if points.device.type == "cpu" and image_xyz.device.type == "cpu":
-        return pixel_topk_plain(points, image_xyz, iu0, iv0, window, k)
-    if points.device.type != "cuda":
-        raise ValueError(f"pixel_topk: unsupported device {points.device}")
+
+@torch.library.impl("mvkpconv::pixel_topk", "cuda")
+def _pixel_topk_cuda(points, image_xyz, iu0, iv0, window, k):
+    """The CUDA kernel of ``mvkpconv::pixel_topk``."""
     check_args(points, image_xyz, iu0, iv0, window, k)
     dev = points.device
     b, v, h, w, _ = image_xyz.shape
@@ -117,6 +106,40 @@ def pixel_topk(
     _build.check_launch("pixel_topk", rc)
     pixel_topk.launches += 1
     return out
+
+
+torch.library.impl("mvkpconv::pixel_topk", "cpu", pixel_topk_plain)
+
+
+@torch.library.register_fake("mvkpconv::pixel_topk")
+def _pixel_topk_fake(points, image_xyz, iu0, iv0, window, k):
+    return points.new_empty((points.shape[0], points.shape[1], k), dtype=torch.int32)
+
+
+def pixel_topk(
+    points: torch.Tensor,
+    image_xyz: torch.Tensor,
+    iu0: torch.Tensor,
+    iv0: torch.Tensor,
+    window: int,
+    k: int,
+) -> torch.Tensor:
+    """Flat V·H·W indices of the k nearest candidate pixels per point: the
+    operator ``mvkpconv::pixel_topk``.
+
+    Args:
+      points: (B, N, 3) float32.
+      image_xyz: (B, V, H, W, 3) float32 or bfloat16 pixel positions.
+      iu0, iv0: (B, V, N) int32 window corners, in bounds.
+      window: window side; k: neighbors (k ≤ V·window²).
+    """
+    v = image_xyz.shape[1]
+    if not 1 <= k <= v * window * window:
+        raise ValueError(f"pixel_topk: k={k} outside [1, V·window²={v * window * window}]")
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"pixel_topk: unsupported device {points.device}")
+    return pixel_topk_op(points, image_xyz, iu0, iv0, int(window), int(k))
+
 
 
 pixel_topk.launches = 0

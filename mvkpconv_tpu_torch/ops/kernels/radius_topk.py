@@ -11,10 +11,17 @@ the f32 radius.
 Shadow query rows (at SHADOW_COORD) are at d² = 0 from shadow support rows
 and select them; valid rows never see padding (it is out of every radius).
 
-CPU tensors take :func:`radius_topk_plain`; CUDA tensors launch
-``csrc/radius_topk.cu`` or raise. The kernel skips groups of 32 consecutive
-supports (and super-groups of 32 groups) whose bounding box lies out of the
-query's radius; :func:`group_boxes` and :func:`box_lower_bound` are that
+:func:`radius_topk` calls the ``torch.library`` operator
+``mvkpconv::radius_topk`` (``radius_topk_op``), whose CPU kernel is
+:func:`radius_topk_plain` and whose CUDA kernel launches
+``csrc/radius_topk.cu``; its fake kernel gives the output's shape, so
+``torch.export`` keeps the operator whole in an exported program. It is
+defined with ``torch.library.define`` / ``impl`` rather than ``custom_op``,
+whose Python wrapper adds host time to every call.
+
+The kernel skips groups of 32 consecutive supports (and super-groups of 32
+groups) whose bounding box lies out of the query's radius;
+:func:`group_boxes` and :func:`box_lower_bound` are that
 test's arithmetic in PyTorch, operation by operation, so that the CPU tests
 can hold it: the bound never exceeds the rounded d² of a pair it covers.
 """
@@ -114,14 +121,13 @@ def check_args(query: torch.Tensor, support: torch.Tensor, k: int) -> None:
         raise ValueError(f"radius_topk: unsupported sizes B={b} Nq={nq} Ns={ns}")
 
 
-def radius_topk(
-    query: torch.Tensor, support: torch.Tensor, radius: float, k: int
-) -> torch.Tensor:
-    """Up-to-k nearest supports within ``radius``, ascending, shadow = Ns."""
-    if query.device.type == "cpu" and support.device.type == "cpu":
-        return radius_topk_plain(query, support, radius, k)
-    if query.device.type != "cuda":
-        raise ValueError(f"radius_topk: unsupported device {query.device}")
+torch.library.define("mvkpconv::radius_topk", "(Tensor query, Tensor support, float radius, int k) -> Tensor")
+radius_topk_op = torch.ops.mvkpconv.radius_topk.default
+
+
+@torch.library.impl("mvkpconv::radius_topk", "cuda")
+def _radius_topk_cuda(query, support, radius, k):
+    """The CUDA kernel of ``mvkpconv::radius_topk``."""
     check_args(query, support, k)
     b, nq, _ = query.shape
     ns = support.shape[1]
@@ -147,6 +153,26 @@ def radius_topk(
     radius_topk.launches += 1
     radius_topk.device_launches += 2
     return out
+
+
+torch.library.impl("mvkpconv::radius_topk", "cpu", radius_topk_plain)
+
+
+@torch.library.register_fake("mvkpconv::radius_topk")
+def _radius_topk_fake(query, support, radius, k):
+    return query.new_empty((query.shape[0], query.shape[1], k), dtype=torch.int32)
+
+
+def radius_topk(
+    query: torch.Tensor, support: torch.Tensor, radius: float, k: int
+) -> torch.Tensor:
+    """Up-to-k nearest supports within ``radius``, ascending, shadow = Ns:
+    the operator ``mvkpconv::radius_topk``, the plain version on CPU
+    tensors, the kernel on CUDA tensors (any other device raises)."""
+    if query.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"radius_topk: unsupported device {query.device}")
+    return radius_topk_op(query, support, float(radius), int(k))
+
 
 
 radius_topk.launches = 0  # calls that reached the kernel

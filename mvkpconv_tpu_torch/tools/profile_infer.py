@@ -1,6 +1,6 @@
 """Where the inference slice's (or the train step's) time goes on one GPU.
 
-    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train] [--fused]
+    python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train | --serving] [--fused]
         [--config bench|deform|baseline] [--out DIR]
 
 At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
@@ -34,6 +34,17 @@ FeatureAggregation, no lift) in place of the bench configuration:
     any other, with their launches. Since K3 rounds f32 rows itself and
     writes its whole output, the cast and the fill should read zero on both
     paths.
+
+``--serving`` profiles the serving artifact (``eval/export.export_inference``
+of the same model, loaded by ``ServingModel``) beside the eager forward
+(``infer`` and a softmax), each called in turn: ``host_ms`` a call (host
+clock, synchronized, mean of 10 rounds) of the eager forward, of the
+artifact as a user calls it, of its module without the input check, of that
+module under ``torch.inference_mode`` (as ``infer`` runs), and of the check
+alone; and for each under ``torch.profiler`` over 3 calls the device busy
+ms, device launches, operator calls and their host ms a call, the operators
+with the most host time, and the device kernels whose launches differ
+between the eager forward and the artifact.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
 ``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``
@@ -193,9 +204,85 @@ def gather_vjp_kernels(prof, runs: int):
     return {"nodes_per_run": len(nodes) / runs, "by_kind": by_kind, "by_name": by_name}
 
 
+def _profile(fn, runs: int = 3):
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def serving_profile(cfg, dev, batch, smi, rounds: int = 10, runs: int = 3):
+    """The serving artifact beside the eager forward (module docstring)."""
+    import time
+
+    from mvkpconv_tpu_torch.eval.export import ServingModel, export_inference
+    from mvkpconv_tpu_torch.infer import infer
+
+    model = make_model(cfg, dev, seed=0)
+    served = ServingModel.from_bytes(export_inference(model, cfg))
+    sb = {k: batch[k] for k in served.input_spec}
+
+    def module_no_grad():
+        with torch.no_grad():
+            return served._module(sb)
+
+    @torch.inference_mode()
+    def module_inference_mode():
+        return served._module(sb)
+
+    runners = {
+        "eager": lambda: torch.softmax(infer(model, batch), dim=-1),
+        "artifact": lambda: served(sb),
+        "artifact_module": module_no_grad,
+        "artifact_module_inference_mode": module_inference_mode,
+        "check": lambda: served._check(sb),
+    }
+    times = {k: [] for k in runners}
+    for fn in runners.values():  # warm-up
+        fn()
+    for _ in range(rounds):
+        for name, fn in runners.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    host_ms = {k: float(np.mean(v)) for k, v in times.items()}
+    profiles, launches, op_counts = {}, {}, {}
+    for name in ("eager", "artifact", "artifact_module_inference_mode"):
+        events = _profile(runners[name], runs).key_averages()
+        dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+               and e.key.startswith(("aten::", "mvkpconv::"))]
+        launches[name] = {e.key[:80]: e.count / runs for e in dev_ev}
+        op_counts[name] = {e.key: e.count / runs for e in ops}
+        profiles[name] = {
+            "device_busy_ms": sum(e.self_device_time_total for e in dev_ev) / runs / 1e3,
+            "device_launches": sum(e.count for e in dev_ev) / runs,
+            "op_calls": sum(e.count for e in ops) / runs,
+            "op_self_host_ms": sum(e.self_cpu_time_total for e in ops) / runs / 1e3,
+            "top_ops_host_ms": [[e.key, e.self_cpu_time_total / runs / 1e3, e.count / runs]
+                                for e in sorted(ops, key=lambda e: e.self_cpu_time_total,
+                                                reverse=True)[:12]],
+        }
+    def diff(table):  # [name, eager, artifact] where the counts a call differ
+        rows = ([k, table["eager"].get(k, 0.0), table["artifact"].get(k, 0.0)]
+                for k in set(table["eager"]) | set(table["artifact"]))
+        return sorted((r for r in rows if r[1] != r[2]), key=lambda r: abs(r[2] - r[1]), reverse=True)[:20]
+
+    print(json.dumps({"card": smi, "mode": "serving", "config": "fused" if cfg.use_pallas_kpconv else "default",
+                      "host_ms": host_ms, "profiles": profiles,
+                      "launch_diff_eager_vs_artifact": diff(launches),
+                      "op_diff_eager_vs_artifact": diff(op_counts)}))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--serving", action="store_true",
+                    help="the serving artifact beside the eager forward")
     ap.add_argument("--fused", action="store_true",
                     help="the fused KPConv path (K4, no influence cache)")
     ap.add_argument("--config", choices=sorted(CONFIGS), default="bench",
@@ -209,6 +296,12 @@ def main(argv=None) -> None:
     if args.fused:
         cfg = cfg.replace(**FUSED_OPTIONS)
     batch = batch_to_device(make_batch(cfg, cfg.batch_num, np.random.RandomState(0)), dev)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True,
+    ).stdout.strip()
+    if args.serving:
+        return serving_profile(cfg, dev, batch, smi)
     spans = {}
     run = (train_runner if args.train else inference_runner)(cfg, dev, batch, spans)
 
@@ -219,11 +312,7 @@ def main(argv=None) -> None:
     torch.cuda.synchronize()
     ms = stage_ms(spans, args.train)
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        for _ in range(3):
-            run()
-        torch.cuda.synchronize()
+    prof = _profile(run)
     events = prof.key_averages()
     kernels = sorted(
         (e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -236,10 +325,6 @@ def main(argv=None) -> None:
     (out / f"{name}.txt").write_text(
         events.table(sort_by="self_device_time_total", row_limit=60)
     )
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True,
-    ).stdout.strip()
     sums = {}
     for label, parts in OWN_KERNELS.items():
         mine = [e for e in kernels if any(part in e.key for part in parts)]

@@ -8,7 +8,7 @@ MV-KPConv trains its UNet end to end.
 Runs on one device: the first CUDA device unless ``--device`` names another
 (``--device cpu`` runs every kernel's plain version). The JAX CLI's
 multi-host scene sharding and data-parallel mesh are not ported (ROADMAP
-queue 1, item 9).
+queue 1, item 5).
 
 Examples:
   python -m mvkpconv_tpu_torch.tools.train_scannet --fusion none --data synthetic --steps 200

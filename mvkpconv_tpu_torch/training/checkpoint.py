@@ -8,7 +8,9 @@ checkpoint is ``torch.save`` of a dict; the Trainer's holds ``step``,
 ``model`` (the ``state_dict``: parameters and BN statistics) and
 ``optimizer`` (its ``state_dict``: momentum and the schedule's count). Each
 file is written to a temporary name and moved into place with
-``os.replace``, so a reader never sees half a file. ``parameters.txt``
+``os.replace``, so a reader never sees half a file. The tag of a JAX run
+directory names a ``.msgpack``, which this class never reads: the Trainer
+resumes such a run through ``training/jax_checkpoint.py``. ``parameters.txt``
 beside the checkpoints (written by the Trainer) makes a run directory
 self-describing.
 """
@@ -17,6 +19,7 @@ from __future__ import annotations
 
 import io
 import os
+import pickle
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -58,21 +61,31 @@ class Checkpointer:
             old.unlink()
 
     def latest_path(self) -> Optional[Path]:
+        """The ``ckpt_*.pt`` the ``last_checkpoint`` tag names, else the
+        newest; a tag naming another kind of file (the JAX package's
+        ``.msgpack``) is not followed."""
         tag = self.dir / "last_checkpoint"
         if tag.exists():
             p = self.dir / tag.read_text().strip()
-            if p.exists():
+            if p.suffix == ".pt" and p.exists():
                 return p
         ckpts = sorted(self.dir.glob("ckpt_*.pt"))
         return ckpts[-1] if ckpts else None
 
     def restore(self, path: Optional[Path] = None) -> Optional[Dict[str, Any]]:
         """The dict saved at ``path`` (default: the latest), tensors on the
-        CPU; None where no checkpoint exists."""
+        CPU; None where no checkpoint exists. Raises, naming the file, on a
+        file that is not one of the port's checkpoints."""
         path = path or self.latest_path()
         if path is None:
             return None
-        return torch.load(path, map_location="cpu", weights_only=True)
+        if Path(path).suffix != ".pt":
+            raise ValueError(f"{path}: not a checkpoint of the port (ckpt_*.pt); a JAX run's "
+                             "*.msgpack is read by training/jax_checkpoint.py")
+        try:
+            return torch.load(path, map_location="cpu", weights_only=True)
+        except (pickle.UnpicklingError, EOFError, RuntimeError) as err:  # they do not name the file
+            raise ValueError(f"{path}: not a readable checkpoint of the port: {err}") from err
 
     def restore_best(self) -> Optional[Dict[str, Any]]:
         p = self.dir / BEST

@@ -7,7 +7,8 @@ Semantics kept from the JAX package's Trainer:
   * ``training.txt`` convergence log, ``val_IoUs.txt``, ``scalars.jsonl``
     and ``parameters.txt`` in the output directory;
   * graceful stop by deleting the ``running_PID.txt`` kill file;
-  * ``maybe_resume`` from the latest checkpoint;
+  * ``maybe_resume`` from the latest checkpoint, the port's or, in a JAX
+    run's directory, the JAX package's with its optimizer state;
   * a prefetch thread that assembles the next host batch while the device
     runs the current step;
   * ``profile_steps``: a ``torch.profiler`` trace of steps [2, 2+N) under
@@ -18,7 +19,7 @@ the port's ``step(batch) -> {'loss', 'accuracy'}`` (``training/steps.py``),
 which updates ``model`` and ``optimizer`` in place, and counts the steps
 itself. Each numpy batch goes to the model's device as it is handed over
 (strip host-only keys with ``data.spheres.device_batch`` first). There is no
-mesh: data parallelism is not ported (ROADMAP queue 1, item 9).
+mesh: data parallelism is not ported (ROADMAP queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from torch import nn
 from mvkpconv_tpu_torch.data.prefetch import prefetch
 from mvkpconv_tpu_torch.infer import batch_to_device
 from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
+from mvkpconv_tpu_torch.training.jax_checkpoint import jax_checkpoint_path, load_jax_train_state
 from mvkpconv_tpu_torch.training.logger import (
     MetricLogger,
     ScalarLog,
@@ -114,6 +116,14 @@ class Trainer:
         self.logger.info("profiler trace written to %s", out)
 
     def maybe_resume(self):
+        """Resume from the latest checkpoint of the output directory: the
+        port's ``ckpt_*.pt``, else a JAX run's ``ckpt_*.msgpack`` (model,
+        BN statistics, momentum and the schedule's count)."""
+        path = jax_checkpoint_path(self.checkpointer.dir)
+        if path is not None:
+            self.step = load_jax_train_state(self.model, self.optimizer, path)
+            self.logger.info("resumed from step %d of the JAX checkpoint %s", self.step, path)
+            return
         restored = self.checkpointer.restore()
         if restored is not None:
             self.model.load_state_dict(restored["model"])
