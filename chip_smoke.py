@@ -225,6 +225,38 @@ Phases, each printed as one JSON line:
      frozen): the report's keys and protocols, each row's K1, K2 and K3
      launches (K2 on the fusion row only).
 
+ 27. fps_sa0..fps_sa3 (inside phase 17, after pn2_index_ops, whose FPS
+     times are now P1's): the farthest-point-sampling kernel P1 against its
+     plain version (the eager loop) at PN2SSG's four levels on the MVPNet
+     batch (B=4, N=8192 → 2048, 512, 128, 32): indices equal; kernel and
+     plain ms (CUDA events), the bound (max of the bytes at 3.35 TB/s and
+     9·B·N·S operations at 67 TFLOP/s) and the dependent steps (S − 1, the
+     serial chain); fps_forward_sum, their sum; fps_adv_*, untimed: a padded
+     tail masked out (a different length a cloud, at the shadow
+     coordinate), more samples than points, exact ties (a quarter grid),
+     N = 20,000 (the minima in a scratch array), masked there too. Phase 18
+     holds P1's launches: 4 a step and a validation forward of MVPNet and
+     PN2, 4 a ``test_mvpnet`` forward, none in ``precompute_2d``; and
+     train_mvpnet_full reports P1's device ms a step and its share;
+ 28. export_mvpnet (with phase 25): ``export_inference(kind='mvpnet')`` at
+     ``train_mvpnet``'s defaults (4 chunks of 8192 points, 3 views of
+     120x160, f32, seeded weights), saved, loaded, 5 calls: P1 4 and K2 1 a
+     call through the operators, equal to the eager model under
+     deterministic algorithms; export and load seconds, bytes, ms a call
+     beside the eager forward's;
+ 29. ddp_gloo_2proc: two processes on this card over gloo
+     (``parallel.spawn``), the bench batch split 2 spheres a process: (a)
+     in f32 (gather VJP 'banded', TF32 off, deterministic algorithms) one data-parallel step's loss
+     and state against the single-process step on the whole batch, loss
+     rtol 1e-5, state rtol 1e-4, atol 1e-6, K1 13 (26), K2 1, K3 22 + 13 a
+     process; (b) the bench configuration (bf16), 5 timed steps a process,
+     ms a step and peak memory;
+ 30. ddp_nccl_world1: one NCCL process (``torchrun --nproc-per-node 1``'s
+     path): the data-parallel step bit-equal to the plain step, and the
+     plain step to itself, under deterministic algorithms;
+     dryrun_multichip_cpu: ``parallel.dryrun_multichip(4, device='cpu')``, 4 gloo CPU
+     processes on a (data=2, model=2) mesh (FSDP2 on this machine's torch).
+
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -280,6 +312,12 @@ def device_ms(fn, reps=20):
     than the kernels (0.05–0.08 ms a call). A profile that recorded no device
     time at all (it happens now and then, twice in a row as well) is taken
     again, up to six times."""
+    return device_ms_by(fn, reps)["total"]
+
+
+def device_ms_by(fn, reps=20, names=()):
+    """``device_ms`` of ``fn``, and of the kernels whose name holds each of
+    ``names``: ``{"total": ms, name: ms, ...}`` per call."""
     import torch
 
     fn()
@@ -290,10 +328,11 @@ def device_ms(fn, reps=20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
         if total > 0:
-            return total / 1e3 / reps
+            return {"total": total / 1e3 / reps,
+                    **{n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3 / reps for n in names}}
     raise RuntimeError("device_ms: the profiler recorded no device time")
 
 
@@ -1138,6 +1177,7 @@ def runs_k4(cfg):
 
 
 def kernel_counters():
+    from mvkpconv_tpu_torch.ops.kernels import fps as p1
     from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
     from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
     from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
@@ -1146,7 +1186,7 @@ def kernel_counters():
     return {"radius_topk": k1.radius_topk, "pixel_topk": k2.pixel_topk, "segsum": k3.segsum,
             "segsum_plan": k3.segsum_plan,
             "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
-            "kpconv_wf": k4.kpconv_wf}
+            "kpconv_wf": k4.kpconv_wf, "farthest_point_sample": p1.farthest_point_sample}
 
 
 def reset_launches():
@@ -1675,10 +1715,9 @@ def mvpnet_batch(dev, scenes, b=4, n=8192, num_views=3, seed=0):
 
 def pn2_index_ops(points):
     """The index tensors one PN2SSG forward builds from (B, N, 3) points —
-    per set-abstraction level the FPS and the ball query of its centroids,
-    per propagation level the 3-NN — and the time of each call (CUDA events
-    around the eager calls: the FPS is a host loop of one step a centroid,
-    so its time is the host's)."""
+    per set-abstraction level the FPS (kernel P1) and the ball query of its
+    centroids, per propagation level the 3-NN — and the time of each call
+    (CUDA events around the calls)."""
     from mvkpconv_tpu_torch.ops.gather import batch_index_select
     from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn
     from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample
@@ -1687,7 +1726,7 @@ def pn2_index_ops(points):
     times = {"fps": [], "ball_query": [], "knn": []}
     sa, fp = [], []
     for m, r in PN2_LEVELS:
-        times["fps"].append(cuda_ms(lambda: farthest_point_sample(xyz, m), reps=2, warmup=1))  # noqa: B023
+        times["fps"].append(cuda_ms(lambda: farthest_point_sample(xyz, m), reps=5, warmup=1))  # noqa: B023
         new = batch_index_select(xyz, farthest_point_sample(xyz, m))
         times["ball_query"].append(cuda_ms(lambda: ball_query(new, xyz, r, 32), reps=3, warmup=1))  # noqa: B023
         sa.append((ball_query(new, xyz, r, 32), xyz.shape[1]))
@@ -1735,9 +1774,64 @@ def precompute_k2_inputs(dev):
     return window, k, out
 
 
-def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows):
-    """K2 and K3 where the MVPNet path hands them other inputs than the
-    bench's: K2 at ``MVPNet3D``'s selection (4 chunks of 8192 points, 3 views
+FPS_EARLIER_MS = "258-394 ms a forward (the eager loop before P1, PERF.md section 5)"
+
+
+def check_fps(name, points, num_samples, rows, mask=None, timed=True, **extra):
+    """P1 against its plain version (the eager loop) on the same inputs:
+    the indices equal; timed, kernel and plain ms (CUDA events), the bound
+    (the points read once and the indices written once at 3.35 TB/s, or
+    9·B·N·S operations at 67 TFLOP/s) and the dependent steps (S − 1
+    block-wide argmaxes, the serial chain that sets the real floor)."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import fps
+
+    b, n, _ = points.shape
+    got = fps.farthest_point_sample(points, num_samples, mask)
+    torch.cuda.synchronize()
+    want = fps.farthest_point_sample_plain(points, num_samples, mask)
+    differ = int((got != want).sum())
+    row = {"phase": name, "b": b, "n": n, "s": num_samples, "masked": 0 if mask is None else int((~mask).sum()),
+           "serial_steps": num_samples - 1, "indices_differ": differ, "max_abs_err": float(differ), **extra}
+    if timed:
+        row["ms"] = cuda_ms(lambda: fps.farthest_point_sample(points, num_samples, mask), reps=10)
+        row["plain_ms"] = cuda_ms(lambda: fps.farthest_point_sample_plain(points, num_samples, mask), reps=2,
+                                  warmup=1)
+        row.update(bound(nbytes(points, got) + (0 if mask is None else nbytes(mask)), 9 * b * n * num_samples))
+        row["us_per_step"] = row["ms"] * 1e3 / max(num_samples - 1, 1)
+    emit(row)
+    rows.append(row)
+    assert differ == 0, f"{name}: {differ} indices differ from the plain version"
+
+
+def check_fps_adversarial(dev, rows):
+    """P1, untimed, on inputs made to break it: a padded tail masked out (at
+    the shadow coordinate, a different length per cloud), more samples than
+    points (index 0 repeats), exact ties (coordinates on a quarter grid, so
+    every d² is exact and many equal: the lowest index must win), and N above
+    8,192 (the minima in a scratch array instead of registers)."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    pts = torch.rand(4, 8192, 3, generator=g, device=dev)
+    tail = torch.tensor([[1500], [1], [0], [4096]], device=dev)
+    mask = torch.arange(8192, device=dev)[None] < 8192 - tail
+    padded = torch.where(mask[..., None], pts, torch.full_like(pts, 1e6))
+    check_fps("fps_adv_padded_tail", padded, 2048, rows, mask=mask, timed=False)
+    check_fps("fps_adv_more_samples", pts[:, :100].contiguous(), 300, rows, timed=False)
+    grid = torch.randint(0, 8, (4, 8192, 3), generator=g, device=dev).float() * 0.25
+    check_fps("fps_adv_ties", grid, 2048, rows, timed=False)
+    check_fps("fps_adv_scratch_path", torch.rand(2, 20000, 3, generator=g, device=dev), 256, rows, timed=False)
+    masked = torch.rand(2, 20000, generator=g, device=dev) > 0.5
+    masked[:, 0] = True
+    check_fps("fps_adv_scratch_path_masked", torch.rand(2, 20000, 3, generator=g, device=dev), 256, rows,
+              mask=masked, timed=False)
+
+
+def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows):
+    """K2, K3 and P1 where the MVPNet path hands them other inputs than the
+    bench's (P1 at PN2SSG's four levels, then ``check_fps_adversarial``): K2 at ``MVPNet3D``'s selection (4 chunks of 8192 points, 3 views
     of 120x160, window 9, k = 3, f32 candidates), timed; K3 at the SA0
     feature gather (ball-query index (4, 2048, 32) into 8192 targets, 64
     wide), the FP3 interpolation gather (3-NN index (4, 8192, 3) into 2048
@@ -1768,7 +1862,14 @@ def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows):
     times, sa, fp, levels = pn2_index_ops(p)
     per_forward = {k: sum(t) for k, t in times.items()}
     emit({"phase": "pn2_index_ops", "points": list(p.shape), "levels": [list(x.shape) for x in levels],
-          "ms": times, "ms_per_forward": per_forward, "timing": "CUDA events around each eager call",
+          "ms": times, "ms_per_forward": per_forward, "timing": "CUDA events around each call",
+          "fps_earlier": FPS_EARLIER_MS, "card": smi})
+    # P1 at PN2SSG's four set-abstraction levels, then on adversarial inputs
+    for i, ((m, _radius), level) in enumerate(zip(PN2_LEVELS, levels)):
+        check_fps(f"fps_sa{i}", level.contiguous(), m, p1_rows)
+    check_fps_adversarial(dev, p1_rows)
+    emit({"phase": "fps_forward_sum", "levels": len(PN2_LEVELS),
+          **{x: sum(r[x] for r in p1_rows[:len(PN2_LEVELS)]) for x in ("ms", "plain_ms", "bound_ms", "serial_steps")},
           "card": smi})
     check_k3("k3_pn2_sa0", sa[0][0], sa[0][1], 64, gen, k3_rows)
     check_k3("k3_pn2_fp3", fp[3][0], fp[3][1], 128, gen, k3_rows)
@@ -1879,6 +1980,8 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     assert trainer.step == 3 and vals == 1 and np.isfinite(mious).all(), (trainer.step, mious)
     assert steps_l["pixel_topk"] == 3 and steps_l["segsum"] == steps_l["segsum_plan"] == 8 * 3, steps_l
     assert val_l["pixel_topk"] == 4 and val_l["segsum"] == val_l["segsum_plan"] == 0, val_l
+    # P1 once a set-abstraction level, a step and a validation forward
+    assert steps_l["farthest_point_sample"] == 4 * 3 and val_l["farthest_point_sample"] == 4 * 4, (steps_l, val_l)
     assert not any(steps_l[k] + val_l[k] for k in never), (steps_l, val_l)
     fresh = make_model(trainer.cfg, dev, seed=0, kind="mvpnet")
     got_2d, start = trainer.model.net_2d.state_dict(), fresh.state_dict()
@@ -1888,13 +1991,19 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     moved = sum(not torch.equal(now[n], start[n]) for n in outside)
     assert moved == len(outside), f"{len(outside) - moved} parameters outside net_2d did not move"
     mb = mvpnet_batch(dev, scenes)
-    busy = device_ms(lambda: trainer.train_step(mb), reps=3)
+    busy = device_ms_by(lambda: trainer.train_step(mb), reps=3, names=("fps_kernel",))
+    row = trainer_row(trainer, seconds, peak)
     emit({"phase": "train_mvpnet_full", "config": "train_mvpnet defaults (MVPNet3D: UNet-ResNet34 frozen, "
           "FeatureAggregation 64, PN2SSG centroids 2048/512/128/32, radii 0.1-0.8, 32 neighbors; B=4 chunks "
-          "of 8192 points, 3 views of 120x160, f32) on synthetic:2, 3 steps", **trainer_row(trainer, seconds, peak),
-          "device_busy_ms_per_step": busy, "val_miou": mious, "index_ops_ms_per_forward": index_ms,
+          "of 8192 points, 3 views of 120x160, f32) on synthetic:2, 3 steps", **row,
+          "device_busy_ms_per_step": busy["total"], "fps_device_ms_per_step": busy["fps_kernel"],
+          "fps_share_of_busy": busy["fps_kernel"] / busy["total"],
+          "fps_share_of_step": busy["fps_kernel"] / row["ms_per_step_after_first"],
+          "earlier_ms_per_step": "306-600 (the eager FPS before P1, PERF.md section 5)",
+          "val_miou": mious, "index_ops_ms_per_forward": index_ms,
           "launches_steps": steps_l, "launches_validation": val_l,
-          "launches_per_step": {k: steps_l[k] / 3 for k in ("pixel_topk", "segsum", "segsum_plan")},
+          "launches_per_step": {k: steps_l[k] / 3 for k in ("pixel_topk", "segsum", "segsum_plan",
+                                                            "farthest_point_sample")},
           "net_2d_equal_bitwise": True, "params_moved": moved, "params_outside_net_2d": len(outside),
           "card": smi})
     reset_launches()
@@ -1904,6 +2013,7 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     launches_test = read_launches()
     chunks = per_scene[0]["chunks"]
     assert launches_test["pixel_topk"] == math.ceil(chunks / per_forward), (launches_test, chunks)
+    assert launches_test["farthest_point_sample"] == 4 * launches_test["pixel_topk"], launches_test
     assert launches_test["segsum"] == 0 and not any(launches_test[k] for k in never), launches_test
     assert np.isfinite(ev.miou) and per_scene[0]["coverage"] > 0.5, (ev.miou, per_scene)
     emit({"phase": "test_mvpnet", "stride": 0.5, "scenes": 1, "chunks": chunks,
@@ -1916,6 +2026,7 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
         dev)
     assert trainer.step == 3 and np.isfinite(trainer.meters.meters["loss"].values).all()
     assert pn2_l["pixel_topk"] == 0 and pn2_l["segsum"] == pn2_l["segsum_plan"] == 7 * 3, pn2_l
+    assert pn2_l["farthest_point_sample"] == 4 * 3, pn2_l
     assert pn2_val["pixel_topk"] == pn2_val["segsum"] == 0 and not any(pn2_l[k] for k in never), pn2_val
     emit({"phase": "train_pn2_full", "config": "train_mvpnet --no-images (PN2SSG on the points' colors, the "
           "same sizes)", **trainer_row(trainer, seconds, peak), "val_miou": val_mious(tmp / "train_pn2_run"),
@@ -1943,6 +2054,7 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     assert feat.shape == (n, 64) and np.isfinite(feat).all() and np.abs(feat).max() > 0, feat.shape
     assert launches_pre["pixel_topk"] == math.ceil(n / 4096) == len(shapes) and launches_pre["segsum"] == 0, \
         (launches_pre, len(shapes))
+    assert launches_pre["farthest_point_sample"] == 0, launches_pre
     # the shapes check_mvpnet_kernels held K2 at, first and padded chunk
     assert set(shapes) == pre_shapes, (set(shapes), pre_shapes)
     emit({"phase": "precompute_2d", "points": n, "chunks": len(shapes), "frames": shapes[0][1][1],
@@ -2510,6 +2622,26 @@ def check_custom_dataset(dev, smi, tmp, k1_rows, k2_rows):
 # ---- a JAX run resumed, deformable inspection, the serving export through
 # the kernels' operators, the variant-accuracy matrix
 
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` inside:
+    the pyramid's ``scatter_add_`` atomics would otherwise part two runs of
+    one forward or step by more than the orders of their sums do."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+DDP_LOSS_RTOL, DDP_PARAM_RTOL, DDP_PARAM_ATOL = 1e-5, 1e-4, 1e-6  # tests/test_parallel.py:166-172
+
+
 EXPORT_PROB_REL = 1e-6  # of the largest probability
 
 
@@ -2633,8 +2765,6 @@ def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5):
     atomics part two runs of either by more: read as ``spread``); export
     and load seconds, artifact bytes, ms a call beside the eager forward's
     timed right after it (and beside ``full``'s)."""
-    import warnings
-
     import torch
     from mvkpconv_tpu_torch.eval.export import ServingModel, export_inference, save_exported
     from mvkpconv_tpu_torch.infer import infer, make_model
@@ -2664,15 +2794,9 @@ def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5):
     eager_ms = (time.perf_counter() - t0) / calls * 1e3
     with torch.no_grad():
         spread = float((out - torch.softmax(infer(model, batch), dim=-1)).abs().max())
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        try:
-            with torch.no_grad():
-                want = torch.softmax(infer(model, batch), dim=-1)
-            got = served(sb)
-        finally:
-            torch.use_deterministic_algorithms(False)
+    with deterministic(), torch.no_grad():
+        want = torch.softmax(infer(model, batch), dim=-1)
+        got = served(sb)
     err, top = float((got - want).abs().max()), float(want.abs().max())
     n_conv, _ = conv_blocks(model)
     emit({"phase": phase, "config": config_label(cfg), "export_s": export_s, "load_s": load_s,
@@ -2712,6 +2836,227 @@ def check_measure_variants(dev, tmp):
         assert launches["radius_topk"] > 0 and launches["segsum"] > 0, launches
         assert (launches["pixel_topk"] > 0) == (row == "mvkpconv_early"), launches
     return paths
+
+
+def check_export_mvpnet(dev, smi, scenes, tmp, calls=5):
+    """``eval/export.export_inference(kind='mvpnet')`` at ``train_mvpnet``'s
+    defaults on the card (MVPNet3D with seeded weights, the UNet frozen; 4
+    chunks of 8192 points from ``ChunkDataset``, 3 views of 120x160, f32),
+    saved, loaded back by ``ServingModel`` and called ``calls`` times: P1
+    once a set-abstraction level (4) and K2 once a call, through the
+    ``mvkpconv::`` operators, no K1, K3 or K4; the probabilities equal the
+    eager model's within 1e-6 of the largest under
+    ``torch.use_deterministic_algorithms``; export and load seconds, bytes,
+    ms a call beside the eager forward's, timed right after it."""
+    import torch
+    from mvkpconv_tpu_torch.eval.export import ServingModel, TensorSpec, export_inference, save_exported
+    from mvkpconv_tpu_torch.infer import infer, make_model
+    from mvkpconv_tpu_torch.training.config import KPConfig
+
+    cfg = KPConfig(batch_num=4, num_views=3, epoch_steps=100)  # tools/train_mvpnet.py's
+    batch = mvpnet_batch(dev, scenes)
+    sb = {k: batch[k] for k in ("points", "images", "depth", "intrinsics", "poses")}
+    spec = {k: TensorSpec(tuple(v.shape), v.dtype) for k, v in sb.items()}
+    model = make_model(cfg, dev, seed=0, kind="mvpnet")
+    t0 = time.perf_counter()
+    data = export_inference(model, cfg, "mvpnet", batch_spec=spec)
+    export_s = time.perf_counter() - t0
+    path = save_exported(data, tmp / "export_mvpnet.pt2")
+    t0 = time.perf_counter()
+    served = ServingModel.load(path)
+    load_s = time.perf_counter() - t0
+    served(sb)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = served(sb)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / calls * 1e3
+    launches = read_launches()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        torch.softmax(infer(model, sb), dim=-1)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / calls * 1e3
+    with torch.no_grad():
+        spread = float((out - torch.softmax(infer(model, sb), dim=-1)).abs().max())
+    with deterministic(), torch.no_grad():
+        want = torch.softmax(infer(model, sb), dim=-1)
+        got = served(sb)
+    err, top = float((got - want).abs().max()), float(want.abs().max())
+    emit({"phase": "export_mvpnet", "config": "train_mvpnet defaults (MVPNet3D, UNet frozen, PN2SSG "
+          "2048/512/128/32; B=4 chunks of 8192 points, 3 views of 120x160, f32), seeded weights",
+          "export_s": export_s, "load_s": load_s, "artifact_bytes": len(data), "calls": calls, "ms_per_call": ms,
+          "eager_ms_per_call": eager_ms, "launches": launches, "max_abs_err": err, "max_prob": top,
+          "limit": EXPORT_PROB_REL * top, "spread_nondeterministic": spread, "device": str(served.device),
+          "card": smi})
+    assert tuple(got.shape) == (4, 8192, cfg.num_classes), got.shape
+    assert bool(torch.isfinite(got).all()) and err <= EXPORT_PROB_REL * top, "export/eager probabilities disagree"
+    assert launches["farthest_point_sample"] == 4 * calls and launches["pixel_topk"] == calls, launches
+    assert not any(launches[k] for k in ("radius_topk", "segsum", "kpconv_fused_fwd")), launches
+    return launches
+
+
+# ---- data parallelism on torch.distributed (parallel/, the step over a mesh)
+
+
+def ddp_f32_config():
+    """The bench configuration in f32 with the exact gather VJP ('banded')."""
+    import torch
+    from mvkpconv_tpu_torch.infer import bench_config
+
+    return bench_config().replace(compute_dtype=torch.float32, gather_transpose="banded")
+
+
+def ddp_gloo_worker(rank, world, raw, steps):
+    """A process of ``ddp_gloo_2proc`` on ``cuda:0`` (gloo): (a) one
+    data-parallel step of ``ddp_f32_config()`` on its half of ``raw``, TF32
+    off, deterministic algorithms, with its launches and the state after it; (b) the bench
+    configuration (bf16), a warm-up and ``steps`` timed steps, and its peak
+    memory."""
+    import torch
+    from mvkpconv_tpu_torch.infer import batch_to_device, bench_config
+    from mvkpconv_tpu_torch.parallel import make_mesh, shard_batch
+    from mvkpconv_tpu_torch.train import make_trainer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device_type="cuda")
+    local = shard_batch(batch_to_device(raw, dev), mesh)
+    setup = make_trainer(ddp_f32_config(), dev, seed=0, mesh=mesh)
+    reset_launches()
+    with deterministic():
+        m = setup.step(local)
+        torch.cuda.synchronize()
+    out = {"f32": {"loss": float(m["loss"]), "accuracy": float(m["accuracy"]), "launches": read_launches(),
+                   "state": {k: v.cpu() for k, v in setup.model.state_dict().items()},
+                   "local_batch": list(local["points"].shape)}}
+    del setup
+    torch.cuda.empty_cache()
+    setup = make_trainer(bench_config(), dev, seed=0, mesh=mesh)
+    setup.step(local)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = setup.step(local)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    out["bf16"] = {"ms_per_step": ms, "losses": losses, "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+    return out
+
+
+def ddp_world1_worker(rank, world, raw):
+    """``ddp_nccl_world1``'s process: the bench step through the plain step,
+    again (the control), and through the data-parallel step over a mesh of
+    this one NCCL process, each from the same seeded weights, under
+    ``torch.use_deterministic_algorithms``: whether the losses and every
+    tensor of the state after the step are equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from mvkpconv_tpu_torch.infer import batch_to_device, bench_config
+    from mvkpconv_tpu_torch.parallel import make_mesh, shard_batch
+    from mvkpconv_tpu_torch.train import make_trainer
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(device_type="cuda")
+    batch = batch_to_device(raw, dev)
+    runs = {}
+    with deterministic():
+        for name, m in (("plain", None), ("plain_again", None), ("data_parallel", mesh)):
+            setup = make_trainer(bench_config(), dev, seed=0, mesh=m)
+            reset_launches()
+            out = setup.step(batch if m is None else shard_batch(batch, m))
+            torch.cuda.synchronize()
+            runs[name] = (float(out["loss"]), {k: v.clone() for k, v in setup.model.state_dict().items()},
+                          read_launches())
+
+    def equal(a, b):
+        return a[0] == b[0] and all(torch.equal(v, b[1][k]) for k, v in a[1].items())
+
+    return {"losses": {k: v[0] for k, v in runs.items()}, "launches": runs["data_parallel"][2],
+            "control_equal": equal(runs["plain_again"], runs["plain"]),
+            "equal": equal(runs["data_parallel"], runs["plain"]),
+            "differing": [k for k, v in runs["data_parallel"][1].items() if not torch.equal(v, runs["plain"][1][k])],
+            "backend": dist.get_backend()}
+
+
+def check_ddp(dev, raw, smi, steps=5):
+    """``ddp_gloo_2proc``: two processes on ``cuda:0`` over gloo (NCCL
+    refuses two ranks on one card; gloo's all-reduce and broadcast take CUDA
+    tensors, all DDP needs), the bench batch split 2 spheres a process. (a)
+    f32, TF32 off, deterministic algorithms (both sides): the loss and every parameter and statistic after one
+    data-parallel step against the single-process step on the whole batch
+    on the same card, at JAX's tolerances for its sharded step (loss rtol
+    1e-5, state rtol 1e-4, atol 1e-6); K1 13 (26), K2 1 and K3 22 sums + 13
+    plans a process. (b) bf16, ``steps`` timed steps a process: ms a step and
+    peak memory. ``ddp_nccl_world1``: the path ``torchrun --nproc-per-node
+    1`` takes, the data-parallel step over one NCCL process, bit-equal to the
+    plain step. Both through ``parallel.spawn``. Then
+    ``dryrun_multichip(4, device='cpu')`` on this machine's CPU: the (data,
+    model) mesh with FSDP2 on its torch."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.infer import batch_to_device, bench_config
+    from mvkpconv_tpu_torch.parallel import dryrun_multichip, spawn
+    from mvkpconv_tpu_torch.train import make_trainer
+
+    t0 = time.perf_counter()
+    gloo = spawn(ddp_gloo_worker, 2, raw, steps, timeout=600)
+    seconds = time.perf_counter() - t0
+    setup = make_trainer(ddp_f32_config(), dev, seed=0)
+    with deterministic():
+        single = setup.step(batch_to_device(raw, dev))
+    want = {k: v.cpu() for k, v in setup.model.state_dict().items()}
+    del setup
+    loss_rel, over, worst = [], [], []
+    for r in gloo:
+        got = r["f32"]
+        loss_rel.append(abs(got["loss"] - float(single["loss"])) / abs(float(single["loss"])))
+        by_tensor = {k: float(((got["state"][k] - v).abs() / (DDP_PARAM_RTOL * v.abs() + DDP_PARAM_ATOL)).max())
+                     for k, v in want.items() if v.is_floating_point()}
+        over.append(max(by_tensor.values()))
+        worst.append(sorted(by_tensor.items(), key=lambda kv: -kv[1])[:3])
+    emit({"phase": "ddp_gloo_2proc", "config": "bench.py:106-117 (B=4, N0=16384, K=30, V=5, 120x160, width 128): "
+          "(a) in f32, gather VJP 'banded', TF32 off, deterministic algorithms; (b) as the bench runs it, bf16", "processes": 2, "backend": "gloo", "device": str(dev),
+          "local_batch": gloo[0]["f32"]["local_batch"], "seconds": seconds,
+          "f32_loss": [r["f32"]["loss"] for r in gloo], "single_process_loss": float(single["loss"]),
+          "loss_rel_err": loss_rel, "state_err_over_allowance": over, "worst_tensors": worst,
+          "launches_per_process": [r["f32"]["launches"] for r in gloo],
+          "bf16_ms_per_step": [r["bf16"]["ms_per_step"] for r in gloo],
+          "bf16_ms_per_step_mean": [float(np.mean(r["bf16"]["ms_per_step"])) for r in gloo],
+          "bf16_losses": [r["bf16"]["losses"] for r in gloo],
+          "peak_mem_gib": [r["bf16"]["peak_mem_gib"] for r in gloo], "card": smi})
+    assert max(loss_rel) <= DDP_LOSS_RTOL, "data-parallel and single-process losses disagree"
+    assert max(over) <= 1.0, "data-parallel and single-process states disagree"
+    for r in gloo:
+        n = r["f32"]["launches"]
+        assert (n["radius_topk"], n["radius_topk_device"], n["pixel_topk"], n["segsum"], n["segsum_plan"]) == \
+            (13, 26, 1, 22, 13), n
+        assert all(np.isfinite(r["bf16"]["losses"])), r["bf16"]
+    t0 = time.perf_counter()
+    (one,) = spawn(ddp_world1_worker, 1, raw, backend="nccl", timeout=600)
+    emit({"phase": "ddp_nccl_world1", "config": config_label(bench_config()), "seconds": time.perf_counter() - t0,
+          **one, "card": smi})
+    assert one["backend"] == "nccl" and one["control_equal"], one
+    assert one["equal"], "the data-parallel step at world size 1 is not the plain step bit for bit"
+    # the (data, model) dry run on this machine's torch: FSDP2 over 4 gloo CPU processes
+    t0 = time.perf_counter()
+    loss = dryrun_multichip(4, device="cpu")
+    ranks = dryrun_multichip.ranks
+    emit({"phase": "dryrun_multichip_cpu", "processes": 4, "mesh": ranks[0]["mesh"], "loss": loss,
+          "accuracy": ranks[0]["accuracy"], "sharded_over_model": len(ranks[0]["sharded"]),
+          "seconds": time.perf_counter() - t0, "torch": torch.__version__})
+    assert ranks[0]["mesh"] == {"data": 2, "model": 2} and ranks[0]["sharded"], ranks[0]["mesh"]
+    return {"ddp_gloo_2proc": gloo[0]["f32"]["launches"], "ddp_nccl_world1": one["launches"]}
 
 
 def main() -> int:
@@ -2829,7 +3174,8 @@ def main() -> int:
     check_deform_sites(deform_config(), levels, calls, gen, k1_rows, k3_rows)
     # the MVPNet path's pixel selection and PN2's gathers (train_mvpnet)
     mv_scenes = chunk_scenes(3, (120, 160))
-    index_ms, pre_shapes = check_mvpnet_kernels(dev, gen, mv_scenes, smi, k2_rows, k3_rows)
+    p1_rows = []
+    index_ms, pre_shapes = check_mvpnet_kernels(dev, gen, mv_scenes, smi, k2_rows, k3_rows, p1_rows)
     top = len(pyr.points) - 1
     for name, q_l, s_l, inds, entry, cin, cout in (
         ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
@@ -2911,7 +3257,8 @@ def main() -> int:
                          "inspect_deform_full": check_inspect_deform(dev, raw, smi, tmp),
                          "export_full": check_export("export_full", cfg, dev, batch, smi, full_row, tmp),
                          "export_full_fused": check_export("export_full_fused", fused, dev, batch, smi,
-                                                           fused_row, tmp)}
+                                                           fused_row, tmp),
+                         "export_mvpnet": check_export_mvpnet(dev, smi, mv_scenes, tmp)}
         torch.backends.cudnn.allow_tf32 = True  # as a user runs the tool
         serving_paths.update(check_measure_variants(dev, tmp))
         torch.backends.cudnn.allow_tf32 = False
@@ -2920,9 +3267,11 @@ def main() -> int:
     # then card against CPU (TF32 off)
     with tempfile.TemporaryDirectory() as tmp:
         custom_paths = check_custom_dataset(dev, smi, Path(tmp), k1_rows, k2_rows)
+    # ---- data parallelism: two gloo processes on this card, NCCL at world size 1
+    ddp_paths = check_ddp(dev, raw, smi)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
                "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths,
-               **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths}
+               **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths, **ddp_paths}
 
     def path_launches(*names):
         """Each full-width run's launches of a kernel, over its forwards or steps."""
@@ -2999,6 +3348,17 @@ def main() -> int:
          "launches_by_path": path_launches("kpconv_fused_bwd_x")},
         {**k4_entry("kpconv_wf", "wf", fused_train_launches["kpconv_wf"]),
          "launches_by_path": path_launches("kpconv_wf")},
+        {"name": "farthest_point_sample", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/fps.cu",
+         "replaces": "mvkpconv_tpu/ops/sampling.py:47 (P1, port-only: the JAX FPS is a lax.fori_loop, "
+                     "no pl.pallas_call)",
+         "launches": mvpnet_paths["train_mvpnet"]["farthest_point_sample"],
+         "launches_by_path": path_launches("farthest_point_sample"),
+         "max_abs_err": max(r["max_abs_err"] for r in p1_rows),
+         "timing": "CUDA events; ms at PN2SSG's first level (4 x 8192 -> 2048)",
+         "ms": p1_rows[0]["ms"], "plain_ms": p1_rows[0]["plain_ms"], "bound_ms": p1_rows[0]["bound_ms"],
+         "bound_by": p1_rows[0]["bound_by"], "library_ms": None, "serial_steps": p1_rows[0]["serial_steps"],
+         "levels": [{x: r[x] for x in ("phase", "b", "n", "s", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "serial_steps", "us_per_step")} for r in p1_rows[:len(PN2_LEVELS)]]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

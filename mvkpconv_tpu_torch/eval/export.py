@@ -6,19 +6,17 @@ port writes one ``torch.export`` program (``torch.export.save``): the whole
 inference step (the pyramid, the UNet over the views, the 2D→3D lift, the
 KPConv trunk, the softmax) with the weights inside it. The hand-written
 kernels stay in it as the ``torch.library`` operators
-``mvkpconv::radius_topk`` (K1), ``mvkpconv::pixel_topk`` (K2) and
-``mvkpconv::kpconv_fused_fwd`` (K4's forward), so the artifact launches the
-kernels on the card and runs their plain versions on the CPU. The loader,
-:class:`ServingModel`, imports those operators' modules and no model code.
+``mvkpconv::radius_topk`` (K1), ``mvkpconv::pixel_topk`` (K2),
+``mvkpconv::kpconv_fused_fwd`` (K4's forward) and
+``mvkpconv::farthest_point_sample`` (P1, MVPNet's and PointNet++'s FPS: the
+loop stays one operator instead of one copy a centroid), so the artifact
+launches the kernels on the card and runs their plain versions on the CPU.
+The loader, :class:`ServingModel`, imports those operators' modules and no
+model code.
 
 Shapes are static, as in the JAX export: the batch contract of the data
 pipelines (shadow-padded spheres) is baked in. The program runs on the
 device it was exported on; ``ServingModel.load(path, device=...)`` moves it.
-
-The MVPNet export (``kind='mvpnet'``) is not ported: the port's farthest
-point sampling is an eager loop of one step a centroid
-(``ops/sampling.py``), which ``torch.export`` would unroll. It waits for a
-device FPS.
 
 Whole-scene serving (:func:`export_whole_scene`): the JAX package scans
 the sphere sweep inside its program with ``lax.scan``. ``torch.export``
@@ -40,6 +38,7 @@ import torch
 from torch import nn
 
 # the operators an exported program calls; importing registers them
+from mvkpconv_tpu_torch.ops.kernels import fps as _p1  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import kpconv as _k4  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import pixel_select as _k2  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import radius_topk as _k1  # noqa: F401
@@ -134,11 +133,6 @@ def export_inference(model: nn.Module, cfg, kind: Optional[str] = None,
     bytes, traced on the model's device. ``kind`` defaults to
     :func:`infer_kind`; ``batch_spec`` to :func:`batch_spec_for`."""
     kind = kind or infer_kind(cfg)
-    if kind == "mvpnet":
-        raise NotImplementedError(
-            "MVPNet export is not ported: the port's farthest point sampling is an eager "
-            "loop that torch.export would unroll once a centroid; it waits for a device FPS"
-        )
     spec = batch_spec or batch_spec_for(cfg, kind)
     meta = {"program": "batch", "kind": kind, "spec": _spec_json(spec)}
     return _export(_Inference(model), model, (_examples(spec, _device(model)),), meta)

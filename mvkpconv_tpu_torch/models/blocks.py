@@ -50,6 +50,7 @@ from torch import nn
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
 from mvkpconv_tpu_torch.ops.gather import group_points, pad_shadow_row
 from mvkpconv_tpu_torch.ops.kernels.kpconv import kpconv_fused
+from mvkpconv_tpu_torch.parallel.collectives import current_group, global_sum, global_sums
 
 
 def gather_neighbors(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -219,7 +220,8 @@ class MaskedBatchNorm(nn.Module):
     Eval uses the running statistics. Train takes the masked mean and the
     masked biased variance over every axis but the channel, with
     ``count = max(Σ mask, 1)`` (the plain mean and biased variance when
-    ``mask`` is None), lets gradients flow through them, and updates the
+    ``mask`` is None), over the whole batch of a data-parallel step
+    (``parallel/collectives.py``), lets gradients flow through them, and updates the
     running statistics as ``ra ← (1 − m)·ra + m·batch`` with the
     reference's torch-style momentum m = ``cfg.batch_norm_momentum``
     (0.02), except in a checkpointed block's recompute."""
@@ -241,14 +243,17 @@ class MaskedBatchNorm(nn.Module):
             return x + self.bias
         if self.training:
             dims = tuple(range(x.dim() - 1))
-            if mask is None:
+            if mask is None and current_group() is None:
                 mean = x.mean(dims)
                 var = ((x - mean) ** 2).mean(dims)
             else:
-                m = mask.to(x.dtype)[..., None]
-                count = m.sum().clamp(min=1.0)
-                mean = (x * m).sum(dims) / count
-                var = (((x - mean) * m) ** 2).sum(dims) / count
+                # over a data-parallel group: Σx and the count summed over it,
+                # then Σ((x − mean)·m)²
+                m = torch.ones_like(x[..., :1]) if mask is None else mask.to(x.dtype)[..., None]
+                total, count = global_sums((x * m).sum(dims), m.sum().reshape(1))
+                count = count.reshape(()).clamp(min=1.0)
+                mean = total / count
+                var = global_sum((((x - mean) * m) ** 2).sum(dims)) / count
             if _BN_UPDATES.get():
                 with torch.no_grad():
                     mo = self.momentum

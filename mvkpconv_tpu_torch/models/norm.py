@@ -9,7 +9,8 @@ is: the JAX UNet builds its BN with ``dtype=None`` under train
 
 Train: the statistics are taken over every axis but the channel, with no
 mask, reduced in f32, the variance in flax's fast biased form
-``max(mean(x²) − mean(x)², 0)``; gradients flow through them. The running
+``max(mean(x²) − mean(x)², 0)``, over the whole batch of a data-parallel
+step (``parallel/collectives.py``); gradients flow through them. The running
 statistics update as ``ra ← m·ra + (1 − m)·batch`` with flax's momentum
 m = 0.9 (torch's 0.1), the variance biased. ``nn.BatchNorm2d`` keeps the
 unbiased variance in its running statistics, so it is not used.
@@ -25,6 +26,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from mvkpconv_tpu_torch.parallel.collectives import current_group, global_sums
 
 MOMENTUM = 0.9  # flax's: the running statistics keep 0.9 of themselves
 
@@ -55,8 +58,13 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             dims = tuple(d for d in range(x.dim()) if d != axis)
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            if current_group() is None:
+                mean, mean_sq = xf.mean(dims), (xf * xf).mean(dims)
+            else:  # over a data-parallel group: one all-reduce of [Σx, Σx², n]
+                n = xf.new_full((1,), float(xf.numel() // xf.shape[axis]))
+                total, total_sq, n = global_sums(xf.sum(dims), (xf * xf).sum(dims), n)
+                mean, mean_sq = total / n, total_sq / n
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.running_mean.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * mean)
                 self.running_var.mul_(MOMENTUM).add_((1.0 - MOMENTUM) * var)

@@ -1,8 +1,9 @@
 """Point sampling (``mvkpconv_tpu/ops/sampling.py``): farthest point
 sampling and voxel-grid subsampling.
 
-``farthest_point_sample`` is the JAX package's iterative FPS, one step a
-centroid in eager PyTorch (ROADMAP queue 2 has its time on the card).
+``farthest_point_sample`` is the JAX package's iterative FPS: the operator
+``mvkpconv::farthest_point_sample`` (``ops/kernels/fps.py``), the loop on
+the device (kernel P1) for CUDA tensors, its plain version on the CPU.
 
 ``grid_subsample``: static-shape barycenter subsampling: voxels are emitted in ascending
 voxel-id order into a fixed ``max_out`` buffer with a validity mask;
@@ -19,6 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from mvkpconv_tpu_torch.ops.common import masked_points
+from mvkpconv_tpu_torch.ops.kernels.fps import farthest_point_sample  # noqa: F401
 
 
 class GridSubsampleResult(NamedTuple):
@@ -78,30 +80,3 @@ def grid_subsample(
     out_mask = counts > 0
     out_points = masked_points(psum / counts.clamp(min=1.0)[..., None], out_mask)
     return GridSubsampleResult(out_points, out_mask, num_valid)
-
-
-def farthest_point_sample(
-    points: torch.Tensor, num_samples: int, mask: Optional[torch.Tensor] = None
-) -> torch.Tensor:
-    """Iterative farthest point sampling of (B, N, 3) points → (B,
-    num_samples) int32 centroid indices.
-
-    The first centroid is index 0; each next one maximizes the distance to
-    the chosen set, ties to the lowest index (``argmax``); points with a
-    False ``mask`` are never picked. With ``num_samples > N`` every point is
-    taken once, then every distance is 0 and index 0 repeats, as in the JAX
-    package. d² is ((dx² + dy²) + dz²), each step rounded.
-    """
-    b, n, _ = points.shape
-    p = points.float()
-    out = torch.zeros((b, num_samples), dtype=torch.int64, device=points.device)
-    min_d2 = torch.full((b, n), float("inf"), device=points.device)
-    cur = torch.zeros((b, 1), dtype=torch.int64, device=points.device)
-    for i in range(1, num_samples):
-        diff = p - torch.gather(p, 1, cur[..., None].expand(b, 1, 3))
-        d2 = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]) + diff[..., 2] * diff[..., 2]
-        min_d2 = torch.minimum(min_d2, d2)
-        cand = min_d2 if mask is None else min_d2.masked_fill(~mask, float("-inf"))
-        cur = cand.argmax(dim=1, keepdim=True)
-        out[:, i:i + 1] = cur
-    return out.to(torch.int32)

@@ -35,15 +35,17 @@ class TrainSetup(NamedTuple):
     step: Callable
 
 
-def make_trainer(cfg, device=None, seed: int = 0, freeze_2d: bool = True, kind: str = None) -> TrainSetup:
+def make_trainer(cfg, device=None, seed: int = 0, freeze_2d: bool = True, kind: str = None,
+                 mesh=None) -> TrainSetup:
     """Model of ``kind`` (``infer.make_model``; weights from ``seed``,
     training mode) on ``device`` (default: the first CUDA device; raises
-    without one), its optimizer and its train step. ``freeze_2d=False``
-    trains an MV-KPConv's or MVPNet's UNet end to end (BN batch statistics,
-    gradients through the lift)."""
+    without one), its optimizer and its train step, over the ``data`` axis
+    of ``mesh`` where one is given (``parallel.make_mesh``).
+    ``freeze_2d=False`` trains an MV-KPConv's or MVPNet's UNet end to end
+    (BN batch statistics, gradients through the lift)."""
     model = make_model(cfg, device, seed, freeze_2d=freeze_2d, kind=kind).train()
     optimizer = make_optimizer(model, cfg, frozen_prefixes=FROZEN_PREFIXES if freeze_2d else ())
-    return TrainSetup(model, optimizer, make_train_step(model, cfg, optimizer))
+    return TrainSetup(model, optimizer, make_train_step(model, cfg, optimizer, mesh=mesh))
 
 
 def train_steps(trainer: TrainSetup, batch: Dict[str, torch.Tensor],

@@ -14,6 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mvkpconv_tpu_torch.models.blocks import KPConvLayer
+from mvkpconv_tpu_torch.parallel.collectives import global_sum
 
 
 def segmentation_cross_entropy(
@@ -32,6 +33,10 @@ def segmentation_cross_entropy(
     ``class_weights`` weigh each point by its label's weight; without them,
     ``balance='class'`` weighs by inverse in-batch class frequency,
     total / (C · count).
+
+    In a data-parallel step (``parallel/collectives.py``) the class counts
+    and the denominator are sums over the whole batch and the numerator is
+    this process's: the processes' losses add up to the global one.
     """
     c = logits.shape[-1]
     valid = labels != ignore_label
@@ -44,13 +49,13 @@ def segmentation_cross_entropy(
         nll = (1.0 - label_smoothing) * nll + label_smoothing * (-logp.mean(-1))
     w = valid.float()
     if class_weights is None and balance == "class":
-        counts = (F.one_hot(safe, c).float() * w[..., None]).reshape(-1, c).sum(0)
+        counts = global_sum((F.one_hot(safe, c).float() * w[..., None]).reshape(-1, c).sum(0))
         total = counts.sum().clamp(min=1.0)
         class_weights = total / (c * counts.clamp(min=1.0))
     if class_weights is not None:
         cw = torch.as_tensor(class_weights, dtype=torch.float32, device=logits.device)
         w = w * cw[safe]
-    return (nll * w).sum() / w.sum().clamp(min=1.0)
+    return (nll * w).sum() / global_sum(w.sum()).clamp(min=1.0)
 
 
 def p2p_fitting_regularizer(
@@ -67,13 +72,15 @@ def p2p_fitting_regularizer(
     leave both means). Fitting is the mean of ``min_d2_norm``; repulsion the
     mean over queries and kernel points of Σ over the other kernel points of
     min(d − ``repulse_extent``, 0)², the other point's position detached.
+    The denominator counts the queries of the whole batch of a data-parallel
+    step, as the loss's does.
     """
     m_kp = min_d2_norm.shape[-1]
     if mask is None:
         w = torch.ones(min_d2_norm.shape[:-1], device=min_d2_norm.device)
     else:
         w = mask.float()
-    denom = (w.sum() * m_kp).clamp(min=1.0)
+    denom = (global_sum(w.sum()) * m_kp).clamp(min=1.0)
     fitting = (min_d2_norm * w[..., None]).sum() / denom
     locs = kp_locs_norm
     d2 = ((locs[..., :, None, :] - locs.detach()[..., None, :, :]) ** 2).sum(-1)

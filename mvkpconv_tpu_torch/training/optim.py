@@ -48,9 +48,14 @@ def make_optimizer(model: nn.Module, cfg, frozen_prefixes: Sequence[str] = ()) -
         if label != "frozen":
             groups[label].append(p)
     factors = {"train": 1.0, "deform": cfg.deform_lr_factor}
+    # a model laid out by ``parallel.shard_parameters`` mixes DTensor and plain
+    # parameters, which the multi-tensor (foreach) kernels do not take together
+    from torch.distributed.tensor import DTensor
+
+    foreach = False if any(isinstance(p, DTensor) for ps in groups.values() for p in ps) else None
     sgd = torch.optim.SGD(
         [{"params": ps, "lr_factor": factors[k], "count": 0} for k, ps in groups.items() if ps],
-        lr=cfg.learning_rate, momentum=cfg.momentum,
+        lr=cfg.learning_rate, momentum=cfg.momentum, foreach=foreach,
     )
 
     def before_step(opt, args, kwargs):
@@ -58,7 +63,7 @@ def make_optimizer(model: nn.Module, cfg, frozen_prefixes: Sequence[str] = ()) -
             group["lr"] = learning_rate(cfg, group["count"]) * group["lr_factor"]
             group["count"] += 1
         nn.utils.clip_grad_value_([p for g in opt.param_groups for p in g["params"]],
-                                  cfg.grad_clip_value)
+                                  cfg.grad_clip_value, foreach=foreach)
 
     sgd.register_step_pre_hook(before_step)
     return sgd

@@ -18,8 +18,15 @@ Where the JAX Trainer carries a functional ``TrainState``, this one drives
 the port's ``step(batch) -> {'loss', 'accuracy'}`` (``training/steps.py``),
 which updates ``model`` and ``optimizer`` in place, and counts the steps
 itself. Each numpy batch goes to the model's device as it is handed over
-(strip host-only keys with ``data.spheres.device_batch`` first). There is no
-mesh: data parallelism is not ported (ROADMAP queue 1, item 5).
+(strip host-only keys with ``data.spheres.device_batch`` first).
+
+With a ``mesh`` (``parallel.make_mesh``; the step built with
+``make_train_step(..., mesh=)``) each process's iterator yields its LOCAL
+slice of the global batch, and the step takes it as it is: where the JAX
+Trainer must assemble a global array (``global_batch_from_local``), the
+port's step runs on the local tensors and sums its statistics over the
+group. Each process writes its run to its own directory: rank 0 to
+``output_dir``, rank r to ``output_dir/rank<r>`` (``parallel.rank_output_dir``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from torch import nn
 
 from mvkpconv_tpu_torch.data.prefetch import prefetch
 from mvkpconv_tpu_torch.infer import batch_to_device
+from mvkpconv_tpu_torch.parallel import rank_output_dir
 from mvkpconv_tpu_torch.training.checkpoint import Checkpointer
 from mvkpconv_tpu_torch.training.jax_checkpoint import jax_checkpoint_path, load_jax_train_state
 from mvkpconv_tpu_torch.training.logger import (
@@ -59,6 +67,7 @@ class Trainer:
         val_period: int = 0,  # 0 = once per epoch
         max_to_keep: int = 5,
         profile_steps: int = 0,  # capture a profiler trace of steps [2, 2+N)
+        mesh=None,
     ):
         self.train_step = train_step
         self.model = model
@@ -67,7 +76,7 @@ class Trainer:
         self.step = 0
         self.cfg = cfg
         self.eval_fn = eval_fn
-        self.output_dir = Path(output_dir)
+        self.output_dir = rank_output_dir(output_dir) if mesh is not None else Path(output_dir)
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self.logger = setup_logger(output_dir=str(self.output_dir))
         self.meters = MetricLogger()

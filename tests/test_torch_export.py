@@ -24,8 +24,10 @@
     on the voted points the log of the mean probabilities within twice the
     logits contract (each sphere's log softmax moves by at most twice its
     logits' difference, and so does the log of their mean).
-  * The contract surface: the input spec, a wrong input raising, MVPNet
-    export raising until the device FPS exists; the CLI with ``--selftest``.
+  * The contract surface: the input spec, a wrong input raising, the
+    whole-scene export of an MVPNet raising (the sweep is KPConv-only, as in
+    the JAX package; ``test_torch_fps_export.py`` holds the MVPNet batch
+    export); the CLI with ``--selftest``.
 """
 
 import functools
@@ -265,8 +267,9 @@ def test_contract_surface():
     cfg, _model, data = exported("none", False)
     with pytest.raises(ValueError, match="no default batch spec"):
         E.batch_spec_for(cfg, "pn2")
-    with pytest.raises(NotImplementedError, match="FPS"):
-        E.export_inference(torch.nn.Linear(1, 1), cfg, "mvpnet")
+    # the whole-scene sweep stays KPConv-only, as the JAX package's
+    with pytest.raises(NotImplementedError, match="whole-scene export of kind 'mvpnet'"):
+        E.export_whole_scene(torch.nn.Linear(1, 1), cfg, "mvpnet", 128, 1)
     served = E.ServingModel.from_bytes(data)
     batch = {k: torch.from_numpy(v) for k, v in make_inputs(cfg, "kpfcnn").items()}
     with pytest.raises(ValueError, match="points"):
