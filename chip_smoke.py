@@ -109,9 +109,13 @@ Phases, each printed as one JSON line:
      the fused path with ``remat='blocks'``: K3 still once a trunk gather a
      step (the backward runs the first forward's graph, and its plans), K4's
      forward twice a fused block (the recompute), ``wf`` and ``bwd_x`` once;
-     the warm-up step's loss within 1e-5 relative of the run without remat
-     (later steps part by the pyramid's atomic sums, which differ between
-     any two runs) and a lower peak memory;
+     from the same weights, two steps with remat and two without, both
+     under deterministic algorithms (the pyramid's atomic sums part any two
+     runs otherwise; the timed runs' gap is printed): the second step's
+     loss, which the first backward decides, within 1e-5 relative, and
+     every parameter and statistic after the two steps within the train
+     step's allowance (rtol 1e-3, atol 1e-5 of the largest); and a lower
+     peak memory;
  15. the training entry point, as a user runs it (PyTorch's TF32 defaults):
      train_scannet_full runs ``tools/train_scannet.main`` at the CLI's
      default configuration (MV-KPConv early fusion, width 128, B=5,
@@ -226,15 +230,24 @@ Phases, each printed as one JSON line:
      launches (K2 on the fusion row only).
 
  27. fps_sa0..fps_sa3 (inside phase 17, after pn2_index_ops, whose FPS
-     times are now P1's): the farthest-point-sampling kernel P1 against its
+     times are now P1's): the farthest-point-sampling kernel P1 (a cloud a
+     thread-block cluster, its plan from ``fps.plan(N)``) against its
      plain version (the eager loop) at PN2SSG's four levels on the MVPNet
-     batch (B=4, N=8192 → 2048, 512, 128, 32): indices equal; kernel and
-     plain ms (CUDA events), the bound (max of the bytes at 3.35 TB/s and
+     batch (B=4, N=8192 → 2048, 512, 128, 32): indices equal; the plan,
+     kernel and plain ms (CUDA events), µs a step, the kernel's device ms
+     (``torch.profiler``), the bound (max of the bytes at 3.35 TB/s and
      9·B·N·S operations at 67 TFLOP/s) and the dependent steps (S − 1, the
-     serial chain); fps_forward_sum, their sum; fps_adv_*, untimed: a padded
-     tail masked out (a different length a cloud, at the shadow
-     coordinate), more samples than points, exact ties (a quarter grid),
-     N = 20,000 (the minima in a scratch array), masked there too. Phase 18
+     serial chain); fps_forward_sum, their sum; fps_plans_sa0..3, each
+     level under every plan a built instance takes (``fps.INSTANCES``
+     laid out by ``fps.layout``: 1 CTA with 1, 2, 4 or 8 points a thread,
+     2, 4 or 8 CTAs with 8), indices equal, the kernel's device ms and µs
+     a step of each, and which one ``fps.plan`` picks;
+     fps_adv_*, untimed: a padded tail masked out (a different length a
+     cloud, at the shadow coordinate), more samples than points, exact ties
+     (a quarter grid), N = 20,000, masked there too, far corners copied on
+     every CTA and warp boundary, ragged N, only point 0 valid, 2 × 100,000
+     (the scratch array), and every built instance under a forced plan;
+     every cluster size and the scratch array are used. Phase 18
      holds P1's launches: 4 a step and a validation forward of MVPNet and
      PN2, 4 a ``test_mvpnet`` forward, none in ``precompute_2d``; and
      train_mvpnet_full reports P1's device ms a step and its share;
@@ -334,6 +347,18 @@ def device_ms_by(fn, reps=20, names=()):
             return {"total": total / 1e3 / reps,
                     **{n: sum(e.self_device_time_total for e in kernels if n in e.key) / 1e3 / reps for n in names}}
     raise RuntimeError("device_ms: the profiler recorded no device time")
+
+
+def ptxas_by_entry(lib):
+    """``ptxas -v``'s registers and spill lines from the build log, each
+    after the entry function it reports on."""
+    out, entry = [], None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else None
+        elif "registers" in line or "spill" in line:
+            out.append(f"{entry}: {line.strip()}" if entry else line.strip())
+    return out
 
 
 def bound(nbytes, flops):
@@ -1777,40 +1802,99 @@ def precompute_k2_inputs(dev):
 FPS_EARLIER_MS = "258-394 ms a forward (the eager loop before P1, PERF.md section 5)"
 
 
-def check_fps(name, points, num_samples, rows, mask=None, timed=True, **extra):
+def check_fps(name, points, num_samples, rows, mask=None, timed=True, plan=None, **extra):
     """P1 against its plain version (the eager loop) on the same inputs:
-    the indices equal; timed, kernel and plain ms (CUDA events), the bound
+    the indices equal; the plan (CTAs a cluster, threads a CTA, points a
+    thread: ``fps.plan(N)`` through the operator, or ``plan`` given to
+    ``fps.launch``); timed, kernel and plain ms (CUDA events), the bound
     (the points read once and the indices written once at 3.35 TB/s, or
-    9·B·N·S operations at 67 TFLOP/s) and the dependent steps (S − 1
-    block-wide argmaxes, the serial chain that sets the real floor)."""
+    9·B·N·S operations at 67 TFLOP/s), the dependent steps (S − 1 argmaxes
+    over the cloud, the serial chain that sets the real floor), µs a step,
+    and the kernel's device ms and µs a step (``torch.profiler``)."""
     import torch
     from mvkpconv_tpu_torch.ops.kernels import fps
 
     b, n, _ = points.shape
-    got = fps.farthest_point_sample(points, num_samples, mask)
+    got = (fps.farthest_point_sample(points, num_samples, mask) if plan is None
+           else fps.launch(points, num_samples, mask, plan))
     torch.cuda.synchronize()
     want = fps.farthest_point_sample_plain(points, num_samples, mask)
     differ = int((got != want).sum())
     row = {"phase": name, "b": b, "n": n, "s": num_samples, "masked": 0 if mask is None else int((~mask).sum()),
-           "serial_steps": num_samples - 1, "indices_differ": differ, "max_abs_err": float(differ), **extra}
+           "plan": (plan or fps.plan(n))._asdict(), "serial_steps": num_samples - 1, "indices_differ": differ,
+           "max_abs_err": float(differ), **extra}
     if timed:
         row["ms"] = cuda_ms(lambda: fps.farthest_point_sample(points, num_samples, mask), reps=10)
         row["plain_ms"] = cuda_ms(lambda: fps.farthest_point_sample_plain(points, num_samples, mask), reps=2,
                                   warmup=1)
         row.update(bound(nbytes(points, got) + (0 if mask is None else nbytes(mask)), 9 * b * n * num_samples))
         row["us_per_step"] = row["ms"] * 1e3 / max(num_samples - 1, 1)
+        # the kernel alone: at the small levels the call's ms is the wrapper's host time
+        row["device_ms"] = device_ms_by(lambda: fps.farthest_point_sample(points, num_samples, mask), reps=10,
+                                        names=("fps_kernel",))["fps_kernel"]
+        row["device_us_per_step"] = row["device_ms"] * 1e3 / max(num_samples - 1, 1)
     emit(row)
     rows.append(row)
     assert differ == 0, f"{name}: {differ} indices differ from the plain version"
+
+
+def time_fps_plans(name, points, num_samples, smi):
+    """P1 under every plan a built instance takes for these points (1 CTA
+    with 1, 2, 4 or 8 points a thread, 2, 4 or 8 CTAs with 8; the fewest
+    threads that cover a CTA's range; no CTA left empty): indices equal to
+    the plain version, the kernel's device ms and µs a step, and the plan
+    ``fps.plan`` picks."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import fps
+
+    b, n, _ = points.shape
+    want = fps.farthest_point_sample_plain(points, num_samples)
+    plans = []
+    for c, k in fps.INSTANCES:
+        pl = fps.layout(n, c, k)
+        if k == 0 or pl.threads > fps.MAX_THREADS or (c - 1) * pl.span >= n:
+            continue
+        assert torch.equal(fps.launch(points, num_samples, None, pl), want), f"{name}: {pl} differs"
+        ms = device_ms_by(lambda: fps.launch(points, num_samples, None, pl), reps=10,  # noqa: B023
+                          names=("fps_kernel",))["fps_kernel"]
+        plans.append({"clusters": c, "threads": pl.threads, "points": k, "device_ms": ms,
+                      "device_us_per_step": ms * 1e3 / max(num_samples - 1, 1), "chosen": pl == fps.plan(n)})
+    emit({"phase": name, "b": b, "n": n, "s": num_samples, "plans": plans,
+          "fastest": min(plans, key=lambda r: r["device_ms"]), "card": smi})
+
+
+def boundary_duplicates(n, b, g, dev):
+    """Uniform points with copies of 4 far corners on both sides of every
+    boundary of P1's plan for ``n`` (each rank's and each warp's first point
+    and the point before it), a corner a boundary in turn: equal keys meet
+    across ranks and lanes, and the lowest index must win."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import fps
+
+    pts = torch.rand(b, n, 3, generator=g, device=dev)
+    corners = torch.tensor([[4, 4, 4], [-4, -4, 4], [4, -4, -4], [-4, 4, -4]], dtype=torch.float32, device=dev)
+    for j, i in enumerate(i for i in fps.plan(n).warp_starts() if i > 0):
+        pts[:, i - 1:i + 1] = corners[j % len(corners)]
+    return pts
 
 
 def check_fps_adversarial(dev, rows):
     """P1, untimed, on inputs made to break it: a padded tail masked out (at
     the shadow coordinate, a different length per cloud), more samples than
     points (index 0 repeats), exact ties (coordinates on a quarter grid, so
-    every d² is exact and many equal: the lowest index must win), and N above
-    8,192 (the minima in a scratch array instead of registers)."""
+    every d² is exact and many equal: the lowest index must win), N = 20,000
+    (the scratch path before the cluster plan, now 8 CTAs of 320 threads),
+    unmasked and masked; then copies of far corners on every CTA and warp
+    boundary of the plan (N = 8,192 and 2,049), N not a multiple of the
+    plan's CTAs x threads (8,191, 2,049 and the least N of each cluster
+    size), only point 0 valid in an 8-CTA cloud, 2 x 100,000 points (the
+    scratch array: 8 CTAs x 1024 threads, warps striding), and every
+    built instance of the kernel (``fps.INSTANCES``) on ragged N through
+    ``fps.launch``. Asserts that
+    the operator's own plans used every cluster size and the scratch
+    array."""
     import torch
+    from mvkpconv_tpu_torch.ops.kernels import fps
 
     g = torch.Generator(device=dev)
     g.manual_seed(1)
@@ -1827,6 +1911,23 @@ def check_fps_adversarial(dev, rows):
     masked[:, 0] = True
     check_fps("fps_adv_scratch_path_masked", torch.rand(2, 20000, 3, generator=g, device=dev), 256, rows,
               mask=masked, timed=False)
+    for n in (8192, 2049):
+        check_fps(f"fps_adv_ties_across_ranks_{n}", boundary_duplicates(n, 4, g, dev), 512, rows, timed=False)
+    first_of_size = {}  # the least N the plan gives each cluster size (ragged for every size but 1)
+    for n in range(1, fps.REGISTER_POINTS + 1):
+        first_of_size.setdefault(fps.plan(n).clusters, n)
+    for n in sorted({8191, 2049} | {n for c, n in first_of_size.items() if c > 1}):
+        check_fps(f"fps_adv_ragged_{n}", torch.rand(4, n, 3, generator=g, device=dev), 512, rows, timed=False)
+    only0 = torch.zeros(4, 8192, dtype=torch.bool, device=dev)
+    only0[:, 0] = True
+    check_fps("fps_adv_only_point_0", pts, 64, rows, mask=only0, timed=False)
+    check_fps("fps_adv_scratch_100k", torch.rand(2, 100000, 3, generator=g, device=dev), 256, rows, timed=False)
+    used = {(r["plan"]["clusters"], r["plan"]["points"]) for r in rows}
+    assert {c for c, _ in used} == set(fps.CLUSTER_SIZES) and any(k == 0 for _, k in used), used
+    for c, k in fps.INSTANCES:
+        n = c * 64 * (k or 16) - 7
+        check_fps(f"fps_adv_instance_c{c}_k{k}", torch.rand(2, n, 3, generator=g, device=dev), 64, rows,
+                  timed=False, plan=fps.Plan(n, c, 64 if k else 256, k))
 
 
 def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows):
@@ -1867,9 +1968,12 @@ def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows):
     # P1 at PN2SSG's four set-abstraction levels, then on adversarial inputs
     for i, ((m, _radius), level) in enumerate(zip(PN2_LEVELS, levels)):
         check_fps(f"fps_sa{i}", level.contiguous(), m, p1_rows)
+    for i, ((m, _radius), level) in enumerate(zip(PN2_LEVELS, levels)):
+        time_fps_plans(f"fps_plans_sa{i}", level.contiguous(), m, smi)
     check_fps_adversarial(dev, p1_rows)
     emit({"phase": "fps_forward_sum", "levels": len(PN2_LEVELS),
-          **{x: sum(r[x] for r in p1_rows[:len(PN2_LEVELS)]) for x in ("ms", "plain_ms", "bound_ms", "serial_steps")},
+          **{x: sum(r[x] for r in p1_rows[:len(PN2_LEVELS)])
+             for x in ("ms", "device_ms", "plain_ms", "bound_ms", "serial_steps")},
           "card": smi})
     check_k3("k3_pn2_sa0", sa[0][0], sa[0][1], 64, gen, k3_rows)
     check_k3("k3_pn2_fp3", fp[3][0], fp[3][1], 128, gen, k3_rows)
@@ -2653,6 +2757,20 @@ def allowance_over(got, want):
             for k, v in want.items()}
 
 
+def remat_two_steps(cfg, dev, batch):
+    """Two train steps of a trainer seeded 0: their losses, and every
+    floating parameter and statistic after them (on the host)."""
+    import torch
+    from mvkpconv_tpu_torch.train import make_trainer, train_steps
+
+    trainer = make_trainer(cfg, dev, seed=0)
+    losses = [float(m["loss"]) for m in train_steps(trainer, batch, 2)]
+    state = {k: v.detach().float().cpu() for k, v in trainer.model.state_dict().items() if v.is_floating_point()}
+    del trainer
+    torch.cuda.empty_cache()
+    return {"losses": losses, "state": state}
+
+
 def check_resume_jax_run(dev, small, tmp):
     """A JAX-layout run directory (``training/jax_checkpoint.py``
     ``write_jax_checkpoint``: the flax ``TrainState`` bytes of 2 CPU steps of
@@ -3099,11 +3217,7 @@ def main() -> int:
     lib = _build.build()
     seconds = time.perf_counter() - t0
     _build.library()
-    log = lib.with_suffix(".log").read_text().splitlines()
-    emit({
-        "phase": "build", "seconds": seconds, "library": lib.name,
-        "ptxas": [ln.strip() for ln in log if "registers" in ln or "spill" in ln],
-    })
+    emit({"phase": "build", "seconds": seconds, "library": lib.name, "ptxas": ptxas_by_entry(lib)})
 
     # ---- kernels against their plain versions at main-path shapes ----
     cfg = bench_config()
@@ -3223,17 +3337,28 @@ def main() -> int:
     for name, rcfg, beside in (("train_full_remat", cfg, train_row),
                                ("train_full_fused_remat", fused, fused_train_row)):
         row, remat_paths[name] = run_train_full(name, rcfg.replace(remat="blocks"), dev, batch, smi, beside=beside)
-        # the first step (the warm-up) from the same weights; later steps
-        # part by more than remat would move them: the pyramid's voxel
-        # barycenters are sums by scatter_add_'s atomics, so two runs of one
-        # configuration differ in the last bits of every level above 0
-        # (on the CPU the two are equal bit for bit: tests/test_torch_trainer.py)
-        rel = abs(row["loss_warmup"] - beside["loss_warmup"]) / abs(beside["loss_warmup"])
-        emit({"phase": name + "_losses", "loss_warmup": row["loss_warmup"],
-              "loss_warmup_without": beside["loss_warmup"], "rel_diff": rel, "losses": row["losses"],
-              "losses_without": beside["losses"], "peak_mem_gib": row["peak_mem_gib"],
-              "peak_mem_gib_without": beside["peak_mem_gib"]})
-        assert rel <= TRAIN_LOSS_REL, "remat='blocks' changed the loss"
+        # two steps from the same weights with and without remat, both under
+        # deterministic algorithms: the pyramid's voxel barycenters are sums
+        # by scatter_add_'s atomics, so two runs of one configuration differ
+        # in the last bits of every level above 0, and in bf16 the timed
+        # runs' warm-up losses part by up to 1.03e-5 relative (three runs on
+        # an H100: 8.6e-7, 2.5e-6, 1.03e-5); on the CPU the two are equal bit
+        # for bit (tests/test_torch_trainer.py). The first step's loss is the
+        # forward's alone; the second step's, and the state after two steps,
+        # are what the recomputing backward decides.
+        with deterministic():
+            without, with_remat = (remat_two_steps(c, dev, batch) for c in (rcfg, rcfg.replace(remat="blocks")))
+        rel = abs(with_remat["losses"][1] - without["losses"][1]) / abs(without["losses"][1])
+        over = allowance_over(with_remat["state"], without["state"])
+        worst = max(over, key=over.get)
+        emit({"phase": name + "_losses", "losses_deterministic": with_remat["losses"],
+              "losses_deterministic_without": without["losses"], "rel_diff_second_step": rel,
+              "state_worst": worst, "state_worst_over_allowance": over[worst],
+              "rel_diff_timed_runs": abs(row["loss_warmup"] - beside["loss_warmup"]) / abs(beside["loss_warmup"]),
+              "losses": row["losses"], "losses_without": beside["losses"],
+              "peak_mem_gib": row["peak_mem_gib"], "peak_mem_gib_without": beside["peak_mem_gib"]})
+        assert rel <= TRAIN_LOSS_REL, "remat='blocks' changed the second step's loss"
+        assert over[worst] <= 1.0, f"remat='blocks' changed the state after two steps: {worst}"
         assert row["peak_mem_gib"] < beside["peak_mem_gib"], "remat='blocks' kept as much memory"
 
     # ---- the training entry point: train_scannet, resume, frozen 2D, test_models,
@@ -3354,11 +3479,16 @@ def main() -> int:
          "launches": mvpnet_paths["train_mvpnet"]["farthest_point_sample"],
          "launches_by_path": path_launches("farthest_point_sample"),
          "max_abs_err": max(r["max_abs_err"] for r in p1_rows),
+         "design": "fps_kernel<K, kCluster>: a cloud a thread-block cluster of 1-8 CTAs (fps.plan(N)), points "
+                   "by index in registers, warp winners stored into every CTA by st.async (DSMEM), a transaction "
+                   "mbarrier the step's one barrier",
          "timing": "CUDA events; ms at PN2SSG's first level (4 x 8192 -> 2048)",
          "ms": p1_rows[0]["ms"], "plain_ms": p1_rows[0]["plain_ms"], "bound_ms": p1_rows[0]["bound_ms"],
          "bound_by": p1_rows[0]["bound_by"], "library_ms": None, "serial_steps": p1_rows[0]["serial_steps"],
-         "levels": [{x: r[x] for x in ("phase", "b", "n", "s", "ms", "plain_ms", "bound_ms", "bound_by",
-                                       "serial_steps", "us_per_step")} for r in p1_rows[:len(PN2_LEVELS)]]},
+         "us_per_step": p1_rows[0]["us_per_step"], "plan": p1_rows[0]["plan"],
+         "levels": [{x: r[x] for x in ("phase", "b", "n", "s", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "serial_steps", "us_per_step", "device_ms", "device_us_per_step")}
+                    for r in p1_rows[:len(PN2_LEVELS)]]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -54,8 +54,9 @@ SIGNATURES = {
     "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
     # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
     "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
-    # points, mask (or NULL), out, scratch (NULL unless N > 8192), B, N, S, stream
-    "mvkp_fps": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # points, mask (or NULL), out, scratch (NULL unless the plan's k is 0), B, N, S,
+    # the plan's clusters, threads and k (ops/kernels/fps.py plan), stream
+    "mvkp_fps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # out[6], out[7], out[4], out[6] on the host; only in a build with MVKP_CYCLES
     "mvkp_kpconv_fwd_cycles": (_P,),
     "mvkp_kpconv_bwd_x_cycles": (_P,),

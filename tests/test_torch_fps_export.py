@@ -6,10 +6,19 @@ serving export (``eval/export.py``, ``kind='mvpnet'``).
     and the plain loop give the same indices as the JAX package's
     ``farthest_point_sample`` (a ``lax.fori_loop``): on random clouds, with a
     mask (padded tails at the shadow coordinate, everything masked but point
-    0), with more samples than points (index 0 repeats) and on exact ties
-    (coordinates on a quarter grid: ties to the lowest index).
+    0), with more samples than points (index 0 repeats), on exact ties
+    (coordinates on a quarter grid: ties to the lowest index) and on copies
+    of far corners placed on both sides of every CTA and warp boundary of
+    the kernel's plan (equal d² across ranks and lanes: each corner is
+    picked at its lowest copy).
+  * ``fps.plan(N)`` for N from 1 to 100,000: 1, 2, 4 or 8 CTAs with
+    contiguous index ranges in rank order that cover N, threads a multiple
+    of 32 up to 1024, at most 8 points a thread in registers, and the
+    scratch array exactly above 65,536 points; always an instance the
+    kernel is built for (``fps.INSTANCES``).
   * The fake kernel gives the real one's shape and dtype; the wrapper's
-    checks refuse what the CUDA kernel does not take.
+    checks refuse what the CUDA kernel does not take, and ``fps.launch``
+    a plan of no built instance or of another N.
   * ``export_inference(kind='mvpnet')``, saved and loaded by
     ``ServingModel``, at ``tests/test_export.py:119-145``'s configuration:
     the program calls FPS as the operator once a set-abstraction level (4)
@@ -74,10 +83,25 @@ def fps_case(case):
         return pts[:, :40], 70, None
     if case == "ties":  # quarter-grid coordinates: every d² exact, many equal
         return (rng.randint(0, 5, (b, n, 3)) * 0.25).astype(np.float32), 90, None
+    if case == "ties_across_ranks":
+        return boundary_duplicates(rng, b, 2049), 64, None
     raise ValueError(case)
 
 
-@pytest.mark.parametrize("case", ["plain", "masked", "padded_tail", "only_point_0", "more_samples", "ties"])
+def boundary_duplicates(rng, b, n):
+    """Uniform points with copies of 4 far corners on both sides of every
+    boundary of the kernel's plan for ``n`` (``fps.plan``: each rank's and
+    each warp's first point and the point before it), a corner a boundary in
+    turn, so equal d² meet across ranks and lanes."""
+    pts = rng.rand(b, n, 3).astype(np.float32)
+    corners = np.array([[4, 4, 4], [-4, -4, 4], [4, -4, -4], [-4, 4, -4]], np.float32)
+    for j, i in enumerate(i for i in fps.plan(n).warp_starts() if i > 0):
+        pts[:, i - 1:i + 1] = corners[j % len(corners)]
+    return pts
+
+
+@pytest.mark.parametrize("case", ["plain", "masked", "padded_tail", "only_point_0", "more_samples", "ties",
+                                  "ties_across_ranks"])
 def test_fps_operator_matches_plain_and_jax(case):
     pts, s, mask = fps_case(case)
     tm = None if mask is None else torch.from_numpy(mask)
@@ -100,6 +124,39 @@ def test_fps_operator_matches_plain_and_jax(case):
     if case == "ties":  # ties broke somewhere, else the case proves nothing
         d2 = ((pts[:, :, None] - pts[:, None]) ** 2).sum(-1)
         assert (d2[0, 0] == d2[0, 0, got[0, 1]]).sum() > 1
+    if case == "ties_across_ranks":  # each corner picked once, at its lowest copy, copies on several ranks
+        plan = fps.plan(pts.shape[1])
+        for g, p in zip(got, pts):
+            far = np.abs(p).max(-1) == 4
+            copies = {tuple(p[i]): np.flatnonzero((p == p[i]).all(-1)) for i in np.flatnonzero(far)}
+            assert len(copies) == 4 and all(len({np.searchsorted([lo for lo, _ in plan.ranges()], c, "right")
+                                                 for c in cs}) > 1 for cs in copies.values())
+            picked = [i for i in g if far[i]]
+            assert sorted(picked) == sorted(cs[0] for cs in copies.values()), (picked, copies)
+
+
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 127, 128, 512, 2048, 8191, 8192, 8193, 20000, 65536, 65537, 100000])
+def test_fps_plan_covers_every_n(n):
+    """The kernel's plan for N points: 1, 2, 4 or 8 CTAs whose index ranges
+    are contiguous, in rank order, and cover N (none empty); a CTA of a
+    multiple of 32 threads up to 1024; at most 8 points a thread in
+    registers covering the CTA's range, or (0) the scratch array above
+    8 x 1024 x 8 points; warps' runs in index order from each range's start;
+    a (CTAs, points a thread) pair the kernel is built for."""
+    plan = fps.plan(n)
+    assert plan.n == n and plan.clusters in (1, 2, 4, 8) and (plan.clusters, plan.points) in fps.INSTANCES
+    fps.check_plan(plan, n)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 1024
+    ranges = plan.ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == n and len(ranges) == plan.clusters
+    assert all(lo < hi for lo, hi in ranges) and all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert 0 <= plan.points <= 8 and (plan.points == 0) == (n > fps.REGISTER_POINTS)
+    if plan.points:
+        assert plan.threads * plan.points >= plan.span
+    starts = plan.warp_starts()
+    assert starts == sorted(set(starts)) and {lo for lo, _ in ranges} <= set(starts)
+    assert len(starts) <= plan.clusters * plan.threads // 32
+    assert fps.plan(n) == plan  # decided by N alone
 
 
 def test_fps_fake_kernel_and_checks():
@@ -118,6 +175,9 @@ def test_fps_fake_kernel_and_checks():
             fps.check_args(*bad)
     with pytest.raises(ValueError, match="device"):
         fps.farthest_point_sample(pts.to("meta"), 4)
+    for bad in (fps.Plan(50, 2, 32, 4), fps.Plan(50, 1, 32, 8)._replace(n=51), fps.Plan(50, 1, 32, 1)):
+        with pytest.raises(ValueError, match="no plan of a built instance"):
+            fps.launch(pts, 4, None, bad)
 
 
 def mvpnet_batch(cfg):
