@@ -269,6 +269,32 @@ Phases, each printed as one JSON line:
      plain step to itself, under deterministic algorithms;
      dryrun_multichip_cpu: ``parallel.dryrun_multichip(4, device='cpu')``, 4 gloo CPU
      processes on a (data=2, model=2) mesh (FSDP2 on this machine's torch).
+ 31. middle and late fusion (``infer.fusion_config``): k3_L0_simple_2d and
+     k3_L0_simple_2d_fused (with phase 7: K3 at middle fusion's
+     ``encoder_2d`` first gather, ones ⊕ the lifted features, 65 wide, 68
+     with the positions), k4_L0_simple_2d (65 → 64, all three kernels) and
+     k4_L0_simple_3d (2 → 64, the 3D stream's first block: forward and
+     ``wf``, no ``bwd_x``) with phase 10; after phase 12: parity and
+     train_parity (phases 5 and 8, each step from the CPU's state) for
+     middle and late fusion, train_parity_fused for middle fusion (K4 in
+     both encoders, ``bwd_x`` on ``encoder_2d``'s first block); full_middle,
+     train_full_middle, full_late, train_full_late, full_middle_fused,
+     train_full_middle_fused (phases 6, 9 and 12 at the bench configuration
+     with that fusion, beside early fusion's row of the same path, launches
+     from the plan, K4 twice early fusion's on the fused path); every row of
+     phases 6, 9 and 12 and of this one with its device busy ms and the
+     hand-written kernels' device ms (``torch.profiler``, 3 runs); with phase
+     15 train_scannet_late / test_models_late (the CLI's default
+     configuration with ``--fusion late``) and train_scannet_middle /
+     test_models_middle (the same cut to 3 levels), each 2 steps, a
+     validation of one batch at step 2 and at the end, 0.5 votes: launches
+     of steps, validations and the test from the plan, ``parameters.txt``
+     and the checkpoint restored into a fresh model bit-equal to the trained
+     one, ms, device busy and peak a step; with phase 25 export_full_late
+     (phase 25 at the bench configuration with late fusion) and
+     export_small_middle (middle fusion at phase 5's configuration, B=2).
+
+Every phase's line carries ``t_s``, the script's seconds so far.
 
 Then one JSON line with every kernel's figures (its time beside the least
 time the card could take for the same bytes and operations), the card's
@@ -297,9 +323,13 @@ F32_FLOP_PER_S = 67e12  # H100 SXM data sheet, outside the tensor cores
 TRAIN_LOSS_REL = 1e-5
 REG_REL = 1e-5  # the deformable regularizer, card against CPU
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL_REL = 1e-3, 1e-5
+T0 = time.perf_counter()
 
 
 def emit(obj):
+    """One JSON line; a phase's line also gets the script's seconds so far."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -763,9 +793,12 @@ def check_deform_sites(dcfg, levels, calls, gen, k1_rows, k3_rows):
                  c, gen, k3_rows, timed=False)
 
 
-def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, results, timed=True):
+def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, results, timed=True, bwd_x=True):
     """The three K4 kernels against their plain versions at one conv site of
     the pyramid, f32 and bf16 features; with ``timed`` also their times.
+    Without ``bwd_x`` the cotangent kernel is left out: a site whose input
+    needs no gradient (an encoder's first block on the batch's own
+    features) launches only the forward and ``wf``.
 
     Kernel and plain version add the same f32 terms in different orders (the
     plain version through PyTorch's batched and plain matrix products), and
@@ -829,18 +862,19 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
         checks["fwd"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
                          float((got - want).abs().max()))
         # the cotangent of the gathered features
-        got = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent)
-        want = k4.kpconv_fused_bwd_x_plain(rel, g, kp, w2d, extent)
-        ref = k4.kpconv_fused_bwd_x_plain(rel64, g64, kp64, w64, extent)
-        allow = KPCONV_REL * k4.kpconv_fused_bwd_x_plain(rel, a_g, kp, a_w, extent) + (
-            KPCONV_INFLUENCE_ABS * torch.matmul(a_g, a_w.t()).reshape(b, n, m, cin).sum(2)[:, :, None, :])
-        assert got.shape == (b, n, k, cin) and got.dtype == torch.float32, name
-        assert bool((got[shadow] == 0).all()), f"{name}: shadow neighbors got a cotangent"
-        again = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent)
-        assert torch.equal(got, again), f"{name} {dt}: K4's bwd_x differs from run to run"
-        checks["bwd_x"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
-                           float((got - want).abs().max()))
-        if nx.dtype == torch.bfloat16:
+        if bwd_x:
+            got = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent)
+            want = k4.kpconv_fused_bwd_x_plain(rel, g, kp, w2d, extent)
+            ref = k4.kpconv_fused_bwd_x_plain(rel64, g64, kp64, w64, extent)
+            allow = KPCONV_REL * k4.kpconv_fused_bwd_x_plain(rel, a_g, kp, a_w, extent) + (
+                KPCONV_INFLUENCE_ABS * torch.matmul(a_g, a_w.t()).reshape(b, n, m, cin).sum(2)[:, :, None, :])
+            assert got.shape == (b, n, k, cin) and got.dtype == torch.float32, name
+            assert bool((got[shadow] == 0).all()), f"{name}: shadow neighbors got a cotangent"
+            again = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent)
+            assert torch.equal(got, again), f"{name} {dt}: K4's bwd_x differs from run to run"
+            checks["bwd_x"] = (over(got, want, allow), over(got, ref, allow), over(want, ref, allow),
+                               float((got - want).abs().max()))
+        if bwd_x and nx.dtype == torch.bfloat16:
             got = k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent, out_dtype=nx.dtype)
             assert got.shape == (b, n, k, cin) and got.dtype == nx.dtype, name
             assert bool((got[shadow] == 0).all()), f"{name}: shadow neighbors got a bf16 cotangent"
@@ -889,17 +923,17 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
         # times: kernels, plain versions, and the einsum chain on a prebuilt influence
         infl_c = infl.to(nx.dtype)
         w3 = w2d.reshape(m, cin, cout)
-        nx_leaf = nx.clone().requires_grad_(True)
+        nx_leaf = nx.clone().requires_grad_(bwd_x)
         w_leaf = w2d.clone().requires_grad_(True)
         w3_leaf = w3.clone().requires_grad_(True)
 
         def k4_fwd_bwd():
             out = k4.kpconv_fused(rel, nx_leaf, kp, w_leaf, extent)
-            torch.autograd.grad(out, (nx_leaf, w_leaf), g)
+            torch.autograd.grad(out, (nx_leaf, w_leaf)[not bwd_x:], g)
 
         def chain_fwd_bwd():
             out = blocks._contract(infl_c, nx_leaf, w3_leaf, nx.dtype)
-            torch.autograd.grad(out, (nx_leaf, w3_leaf), g)
+            torch.autograd.grad(out, (nx_leaf, w3_leaf)[not bwd_x:], g)
 
         reps = 10
         fwd_in = nbytes(rel, nx, kp, w2d)
@@ -912,7 +946,7 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
                 "earlier_ms": EARLIER_MS.get(f"{name}_{dt}"), "earlier_from": EARLIER_FROM,
             },
             # the cotangent in the features' type, as the main path takes it
-            "bwd_x": {
+            **({"bwd_x": {
                 "ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent, nx.dtype), reps),
                 "f32_out_ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x(rel, g, kp, w2d, extent), reps),
                 "plain_ms": cuda_ms(lambda: k4.kpconv_fused_bwd_x_plain(rel, g, kp, w2d, extent, nx.dtype), reps),
@@ -921,7 +955,7 @@ def check_k4(name, q_pts, q_mask, s_pts, inds, cin, cout, radius, cfg, gen, resu
                         infl_ops + 2 * nnz * cin + 2.0 * q * m * cin * cout),
                 "earlier_ms": EARLIER_MS.get(f"{name}_{dt}_bwd_x"),
                 "earlier_from": EARLIER_FROM + ", f32 result",
-            },
+            }} if bwd_x else {}),
             "wf": {
                 "ms": cuda_ms(lambda: k4.kpconv_wf(rel, nx, kp, extent), reps),
                 "plain_ms": cuda_ms(lambda: k4.kpconv_wf_plain(rel, nx, kp, extent), reps),
@@ -1232,6 +1266,8 @@ def read_launches():
 def config_label(cfg, what=""):
     """The bench configuration's description, with what sets ``cfg`` apart."""
     label = f"bench.py:106-117{what} (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16"
+    if cfg.fusion in ("middle", "late"):
+        label = f"bench.py:106-117{what} with fusion={cfg.fusion!r} (B=4, N0=16384, K=30, V=5, 120x160, width 128, bf16"
     if cfg.fusion == "none":
         label = f"bench.py:106-117{what} as the 3D-only KPFCNN (fusion='none', in_features_dim=2; B=4, N0=16384, K=30, width 128, bf16"
     if any("deform" in b for b in cfg.architecture):
@@ -1240,9 +1276,21 @@ def config_label(cfg, what=""):
     return label + (", remat='blocks'" if cfg.remat == "blocks" else "") + ")"
 
 
-def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
+def busy_row(fn):
+    """Device busy ms of a call of ``fn`` and each hand-written kernel's
+    share of it, named as ``profile_infer`` names them (``torch.profiler``,
+    3 calls after a warm-up)."""
+    from mvkpconv_tpu_torch.tools.profile_infer import OWN_KERNELS
+
+    by = device_ms_by(fn, reps=3, names=[part for parts in OWN_KERNELS.values() for part in parts])
+    return {"device_busy_ms": by["total"],
+            "device_ms_by_kernel": {label: sum(by[part] for part in parts) for label, parts in OWN_KERNELS.items()}}
+
+
+def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5, busy=False):
     """The inference slice at full width: a warm-up, then ``forwards`` timed
-    forwards with every kernel's launches counted and held to the plan."""
+    forwards with every kernel's launches counted and held to the plan; with
+    ``busy`` also the device's busy time a forward (``busy_row``)."""
     import torch
     from mvkpconv_tpu_torch.infer import infer, make_model
 
@@ -1272,17 +1320,21 @@ def run_full(phase, cfg, dev, batch, smi, beside=None, forwards=5):
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "logit_abs_max": float(logits.abs().max()), "card": smi,
     }
+    if busy:
+        row.update(busy_row(lambda: infer(model, batch)))
     if beside is not None:
-        row["default_path"] = {k: beside[k] for k in ("ms_per_forward", "points_per_s", "peak_mem_gib")}
+        row["beside"] = {k: beside[k] for k in ("phase", "ms_per_forward", "points_per_s", "peak_mem_gib",
+                                                "device_busy_ms") if k in beside}
     emit(row)
     return row, launches
 
 
-def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
+def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5, busy=False):
     """The train step at full width: a warm-up step, then ``steps`` timed
     steps; loss finite, every trainable tensor moved, ``net_2d`` (where the
     model has one) unchanged bit for bit, every kernel's launches held to the
-    plan. With deformable layers also: the regularizer finite and > 0, and
+    plan; with ``busy`` also the device's busy time a step (``busy_row``,
+    after the checks). With deformable layers also: the regularizer finite and > 0, and
     the warm-up step's update of the offset parameters (``offset_conv``,
     ``offset_bias``) ``deform_lr_factor`` times the rest's: the least-squares
     step size −Δp·g / g·g of each group within 1e-3 of its learning rate."""
@@ -1373,8 +1425,11 @@ def run_train_full(phase, cfg, dev, batch, smi, beside=None, steps=5):
         "regularizer_last": reg, "step_size_by_group": step_size,
         "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2**30, "card": smi,
     }
+    if busy:
+        row.update(busy_row(lambda: train_steps(trainer, batch, 1)))
     if beside is not None:
-        row["default_path"] = {k: beside[k] for k in ("ms_per_step", "points_per_s", "peak_mem_gib")}
+        row["beside"] = {k: beside[k] for k in ("phase", "ms_per_step", "points_per_s", "peak_mem_gib",
+                                                "device_busy_ms") if k in beside}
     emit(row)
     return row, launches
 
@@ -1443,6 +1498,39 @@ def check_deform_and_baselines(dev, batch, smi, small, full_row, train_row):
         "train_full_baseline": run_train_full("train_full_baseline", base, dev, batch, smi,
                                               beside=train_row)[1],
     }
+
+
+def check_fusions(dev, batch, smi, small, small_label, early):
+    """Middle fusion (two encoders over one pyramid and one influence cache,
+    their skips concatenated) and late fusion (the lifted features joined
+    before the head): card against CPU at ``small`` (the forward on the
+    padded batch; 3 train steps, each from the CPU's state, and middle
+    fusion's also on the fused path, where K4 runs in both encoders and
+    ``bwd_x`` on ``encoder_2d``'s first block), then the forward and the
+    train step at the bench configuration on the default path and, for
+    middle fusion, on the fused one, each beside early fusion's row of the
+    same path (``early``), launches held to the plan, device busy measured.
+    Returns the full-width runs' (rows, launches)."""
+    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, fusion_config
+
+    for fusion in ("middle", "late"):
+        cfg = small.replace(fusion=fusion)
+        check_forward_parity("parity", f"{small_label}, f32, fusion={fusion}", cfg, dev)
+        check_train_parity("train_parity", f"{small_label}, fusion={fusion}", cfg, dev, resumed=True)
+    check_train_parity("train_parity_fused", f"{small_label}, fusion=middle, K4",
+                       small.replace(fusion="middle", **FUSED_OPTIONS), dev, resumed=True)
+    rows, paths = {}, {}
+    for name, cfg, path in (("middle", fusion_config("middle"), ""), ("late", fusion_config("late"), ""),
+                            ("middle_fused", fusion_config("middle").replace(**FUSED_OPTIONS), "_fused")):
+        fwd, step = f"full_{name}", f"train_full_{name}"
+        rows[fwd], paths[fwd] = run_full(fwd, cfg, dev, batch, smi, beside=early["full" + path], busy=True)
+        rows[step], paths[step] = run_train_full(step, cfg, dev, batch, smi, beside=early["train_full" + path],
+                                                 busy=True)
+    # ARCHITECTURE_DEEPER's decoder has no conv block: two encoders launch K4 twice as often
+    for phase, early_phase in (("full_middle_fused", "full_fused"), ("train_full_middle_fused", "train_full_fused")):
+        for part in ("kpconv_fused_fwd", "kpconv_wf"):
+            assert paths[phase][part] == 2 * early[early_phase]["launches"][part], (phase, part, paths[phase])
+    return rows, paths
 
 
 # ---- the training entry point (tools/train_scannet.py, tools/test_models.py)
@@ -1713,6 +1801,112 @@ def check_trainer_parity(dev, small, tmp):
           "tensors": len(over), "launches_card": sides["card"][2]})
     assert len(loss_rel) == 2 and max(loss_rel) <= TRAIN_LOSS_REL, "card/CPU Trainer losses disagree"
     assert not outside, "card/CPU Trainer states disagree"
+
+
+# ARCHITECTURE_DEEPER cut to 3 levels (the blocks of its first three, and two
+# upsamples back), for middle fusion's run of the CLIs
+THREE_LEVELS = ("simple", "resnetb", "resnetb_strided", "resnetb", "resnetb_strided", "resnetb",
+                "nearest_upsample", "unary", "nearest_upsample", "unary")
+
+
+def check_cli_fusions(dev, smi, tmp):
+    """``train_scannet`` → ``test_models`` for late fusion at the CLI's
+    default configuration (width 128, B=5, N0=16384, K=34, 5 views of
+    120x160, f32, the UNet trained) and for middle fusion at the same
+    configuration cut to 3 levels; each cut to 2 steps (``epoch_steps=2``),
+    a validation of one batch (``validation_size`` = B) at step 2 and the
+    final one, then the voting test of the run at 0.5 votes. The launches
+    of steps, validations and the test held to the plan; the run's
+    ``parameters.txt`` and last checkpoint restored into a fresh model equal
+    the trained one bit for bit (middle fusion's ``encoder_3d`` /
+    ``encoder_2d`` scopes); ms and data ms a step, device busy a step on a
+    batch of the run's dataset, peak memory. Returns the launches by path."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch.data.spheres import SphereDataset, device_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device, make_model
+    from mvkpconv_tpu_torch.tools import test_models, train_scannet
+    from mvkpconv_tpu_torch.tools.common import load_scenes
+    from mvkpconv_tpu_torch.training.config import KPConfig
+    from mvkpconv_tpu_torch.training.jax_checkpoint import restore_run
+
+    paths = {}
+    for fusion, cut in (("late", {}), ("middle", {"architecture": THREE_LEVELS})):
+        base = train_scannet.default_config(fusion, 66)
+        cfg = base.replace(epoch_steps=2, validation_size=base.batch_num, **cut)
+        cfg_path = tmp / f"parameters_cli_{fusion}.txt"
+        cfg.save(cfg_path)
+        run = tmp / f"run_{fusion}"
+        split = LaunchSplit()
+        try:
+            reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            trainer = train_scannet.main(["--fusion", fusion, "--data", "synthetic:2", "--val-data", "synthetic:1",
+                                          "--config", str(cfg_path), "--output", str(run), "--steps", "2"])
+            seconds = time.perf_counter() - t0
+            steps, val, val_calls = split.steps(), dict(split.val), split.val_calls
+        finally:
+            split.close()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        meters = trainer.meters.meters
+        losses = list(meters["loss"].values)
+        mious = [v["value"] for v in map(json.loads, (run / "scalars.jsonl").read_text().splitlines())
+                 if v["tag"] == "val_miou"]
+        k1, gathers = 3 * cfg.num_layers - 2, trunk_gathers(trainer.model)
+        assert training_log_steps(run) == [1, 2] and trainer.step == 2, training_log_steps(run)
+        assert not trainer.model.freeze_2d and trainer.model.cfg.fusion == fusion
+        assert len(losses) == 2 and all(np.isfinite(losses)), losses
+        assert val_calls == len(mious) == 2 and all(np.isfinite(mious)), (val_calls, mious)
+        assert steps["radius_topk"] == 2 * k1 and val["radius_topk"] == val_calls * k1, (steps, val)
+        assert steps["radius_topk_device"] == 4 * k1, steps
+        assert steps["pixel_topk"] == 2 and val["pixel_topk"] == val_calls, (steps, val)
+        assert steps["segsum"] == 2 * gathers and val["segsum"] == 0, (steps, gathers)
+        assert 0 < steps["segsum_plan"] <= 2 * k1, steps
+        assert steps["kpconv_fused_fwd"] == 0, steps
+        # the run read back as test_models reads it
+        loaded = KPConfig.load(run / "parameters.txt")
+        assert (loaded.fusion, loaded.architecture, loaded.num_layers) == (fusion, cfg.architecture, cfg.num_layers)
+        fresh = make_model(loaded, dev, seed=7)
+        restored_step, restored_from = restore_run(fresh, run / "checkpoints")
+        want = trainer.model.state_dict()
+        got = fresh.state_dict()
+        assert restored_step == 2 and got.keys() == want.keys(), (restored_step, restored_from)
+        assert all(torch.equal(v, want[k]) for k, v in got.items()), "the restored model differs from the trained one"
+        scopes = sorted({k.split(".")[0] for k in want})
+        assert ({"encoder_3d", "encoder_2d"} <= set(scopes)) == (fusion == "middle"), scopes
+        del fresh, got
+        # the device's busy time of a step, on a batch of the run's dataset
+        scenes = load_scenes("synthetic:2", True, cfg.num_views, (cfg.image_height, cfg.image_width))
+        tb = batch_to_device(device_batch(SphereDataset(scenes, trainer.cfg, training=True, seed=0).sample_batch()),
+                             dev)
+        busy_ms = device_ms(lambda: trainer.train_step(tb), reps=3)
+        del trainer, tb
+        reset_launches()
+        t0 = time.perf_counter()
+        ev, full = test_models.main(["--run", str(run), "--data", "synthetic:1", "--votes", "0.5"])
+        test_s = time.perf_counter() - t0
+        launches_test = read_launches()
+        forwards = launches_test["pixel_topk"]
+        assert np.isfinite(ev.miou) and np.isfinite(full.miou), (ev.miou, full.miou)
+        assert forwards > 0 and launches_test["radius_topk"] == k1 * forwards, launches_test
+        assert launches_test["segsum"] == launches_test["kpconv_fused_fwd"] == 0, launches_test
+        emit({"phase": f"train_scannet_{fusion}",
+              "config": f"train_scannet --fusion {fusion} defaults{' at 3 levels' if cut else ''} (width 128, B=5, "
+                        "N0=16384, K=34, V=5, 120x160, f32, UNet trained), 2 steps, epoch_steps=2, validation_size=5",
+              "seconds": seconds, "ms_per_step": [1e3 * t for t in meters["time"].values],
+              "data_ms_per_step": [1e3 * t for t in meters["data"].values], "device_busy_ms_per_step": busy_ms,
+              "peak_mem_gib": peak, "losses": losses, "val_miou": mious, "validations": val_calls,
+              "launches_steps": steps, "launches_validation": val, "trunk_gathers_with_grad": gathers,
+              "restored": {"step": restored_step, "file": restored_from.name, "state_equal_bitwise": True,
+                           "scopes": scopes}, "card": smi})
+        emit({"phase": f"test_models_{fusion}", "votes": 0.5, "seconds": test_s, "forwards": forwards,
+              "miou_subsampled": ev.miou, "miou_full_resolution": full.miou,
+              "oa_full_resolution": full.overall_accuracy, "launches": launches_test})
+        paths.update({f"train_scannet_{fusion}": steps, f"train_scannet_{fusion}_validation": val,
+                      f"test_models_{fusion}": launches_test})
+    return paths
 
 
 # ---- the mvpnet fork's workflow (tools/train_2d, test_2d, train_mvpnet,
@@ -2872,17 +3066,19 @@ def check_inspect_deform(dev, raw, smi, tmp):
     return launches
 
 
-def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5):
-    """``eval/export.export_inference`` of ``cfg`` at full width on the card
-    (seeded weights), saved, loaded back by ``ServingModel`` (the kernels'
-    operators, no model code) and called ``calls`` times: K1 13 (26
-    launches), K2 1 and, on the fused path, K4's forward once a conv block, a
+def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5, label=None):
+    """``eval/export.export_inference`` of ``cfg`` on the card (seeded
+    weights; ``batch`` of its shapes), saved, loaded back by
+    ``ServingModel`` (the kernels' operators, no model code) and called
+    ``calls`` times: K1 3L − 2 (twice that in launches: 13 (26) at 5
+    levels), K2 1 and, on the fused path, K4's forward once a conv block, a
     call, all through the ``mvkpconv::`` operators; the probabilities equal
     the eager model's within 1e-6 of the largest, both run under
     ``torch.use_deterministic_algorithms`` (the pyramid's ``scatter_add_``
     atomics part two runs of either by more: read as ``spread``); export
     and load seconds, artifact bytes, ms a call beside the eager forward's
-    timed right after it (and beside ``full``'s)."""
+    timed right after it (and beside the full-width run ``beside``'s, where
+    given). ``label`` describes a configuration other than the bench's."""
     import torch
     from mvkpconv_tpu_torch.eval.export import ServingModel, export_inference, save_exported
     from mvkpconv_tpu_torch.infer import infer, make_model
@@ -2917,14 +3113,15 @@ def check_export(phase, cfg, dev, batch, smi, beside, tmp, calls=5):
         got = served(sb)
     err, top = float((got - want).abs().max()), float(want.abs().max())
     n_conv, _ = conv_blocks(model)
-    emit({"phase": phase, "config": config_label(cfg), "export_s": export_s, "load_s": load_s,
-          "artifact_bytes": len(data), "calls": calls, "ms_per_call": ms,
-          "eager_ms_per_call": eager_ms, "full_ms_per_forward": beside["ms_per_forward"], "launches": launches,
+    k1 = 3 * cfg.num_layers - 2
+    emit({"phase": phase, "config": label or config_label(cfg), "export_s": export_s, "load_s": load_s,
+          "artifact_bytes": len(data), "calls": calls, "ms_per_call": ms, "eager_ms_per_call": eager_ms,
+          "full_ms_per_forward": beside and beside["ms_per_forward"], "launches": launches,
           "max_abs_err": err, "max_prob": top, "limit": EXPORT_PROB_REL * top, "spread_nondeterministic": spread,
           "device": str(served.device), "card": smi})
     assert tuple(got.shape) == (cfg.batch_num, cfg.num_points[0], cfg.num_classes), got.shape
     assert bool(torch.isfinite(got).all()) and err <= EXPORT_PROB_REL * top, "export/eager probabilities disagree"
-    assert launches["radius_topk"] == 13 * calls and launches["radius_topk_device"] == 26 * calls, launches
+    assert launches["radius_topk"] == k1 * calls and launches["radius_topk_device"] == 2 * k1 * calls, launches
     assert launches["pixel_topk"] == calls, launches
     assert launches["kpconv_fused_fwd"] == (n_conv * calls if runs_k4(cfg) else 0), (launches, n_conv)
     assert launches["segsum"] == 0, launches
@@ -3190,7 +3387,8 @@ def main() -> int:
     import numpy as np
 
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
-    from mvkpconv_tpu_torch.infer import FUSED_OPTIONS, batch_to_device, bench_config, deform_config, fused_config
+    from mvkpconv_tpu_torch.infer import (FUSED_OPTIONS, batch_to_device, bench_config, deform_config, fused_config,
+                                          fusion_config)
     from mvkpconv_tpu_torch.models.kpfcnn import plan_architecture
     from mvkpconv_tpu_torch.ops import _build
     from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
@@ -3264,7 +3462,7 @@ def main() -> int:
     check_forward_parity("parity", f"{small_label}, f32", small, dev)
 
     # ---- the slice at full width ----
-    full_row, launches = run_full("full", cfg, dev, batch, smi)
+    full_row, launches = run_full("full", cfg, dev, batch, smi, busy=True)
 
     # ---- K3 and K4 at the conv sites of the bench pyramid ----
     pyr = build_pyramid(p0, m0, spec)
@@ -3282,6 +3480,10 @@ def main() -> int:
     # the fused path's conv gathers: positions ⊕ features, 3 + Cin wide
     check_k3("k3_L0_resnetb_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + enc[1][2] // 4, gen, k3_rows)
     check_k3("k3_L0_simple_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + enc[0][1], gen, k3_rows)
+    # middle fusion's encoder_2d first block: ones ⊕ the lifted features
+    c2d = cfg.feature_2d_dim + 1
+    check_k3("k3_L0_simple_2d", pyr.neighbors[0], cfg.num_points[0] + 1, c2d, gen, k3_rows)
+    check_k3("k3_L0_simple_2d_fused", pyr.neighbors[0], cfg.num_points[0] + 1, 3 + c2d, gen, k3_rows)
     k3_adv_rows = []
     check_k3_adversarial(pyr.neighbors[0], cfg.num_points[0] + 1, dev, gen, k3_adv_rows)
     # the deformable path's selections and deformed gathers (train_full_deform)
@@ -3299,6 +3501,13 @@ def main() -> int:
     ):
         check_k4(name, pyr.points[q_l], pyr.masks[q_l], pyr.points[s_l], inds, cin, cout,
                  entry[3], cfg, gen, k4_rows)
+    # middle fusion's first blocks: encoder_2d's on ones ⊕ the lifted features
+    # (its input needs a gradient), encoder_3d's (and late fusion's) on the 2
+    # base columns (no bwd_x)
+    for name, cin, with_bwd_x in (("k4_L0_simple_2d", c2d, True),
+                                  ("k4_L0_simple_3d", cfg.base_feature_dim, False)):
+        check_k4(name, pyr.points[0], pyr.masks[0], pyr.points[0], pyr.neighbors[0], cin, enc[0][2] // 2,
+                 enc[0][3], cfg, gen, k4_rows, bwd_x=with_bwd_x)
     # the levels between, one ``resnetb`` site each, held but not timed
     for l in range(1, top):
         entry = next(e for e in enc if e[4] == l and e[0] == "resnetb")
@@ -3319,7 +3528,7 @@ def main() -> int:
     check_train_parity("train_parity", "6 blocks, 2 levels, N0=256, width 32, 2 views 24x32", two_level, dev, resumed=False)
 
     # ---- the train step at full width ----
-    train_row, train_launches = run_train_full("train_full", cfg, dev, batch, smi)
+    train_row, train_launches = run_train_full("train_full", cfg, dev, batch, smi, busy=True)
 
     # ---- the fused KPConv path (K4): card against CPU, then full width ----
     for fusion in ("early", "middle", "late"):
@@ -3327,8 +3536,14 @@ def main() -> int:
                              small.replace(fusion=fusion, **FUSED_OPTIONS), dev)
     check_train_parity("train_parity_fused", f"{small_label}, K4", small.replace(**FUSED_OPTIONS), dev, resumed=True)
     fused = fused_config()
-    fused_row, fused_launches = run_full("full_fused", fused, dev, batch, smi, beside=full_row)
-    fused_train_row, fused_train_launches = run_train_full("train_full_fused", fused, dev, batch, smi, beside=train_row)
+    fused_row, fused_launches = run_full("full_fused", fused, dev, batch, smi, beside=full_row, busy=True)
+    fused_train_row, fused_train_launches = run_train_full("train_full_fused", fused, dev, batch, smi,
+                                                           beside=train_row, busy=True)
+
+    # ---- middle and late fusion: card against CPU, then full width on both paths
+    fusion_rows, fusion_paths = check_fusions(
+        dev, batch, smi, small, small_label,
+        {"full": full_row, "train_full": train_row, "full_fused": fused_row, "train_full_fused": fused_train_row})
 
     # ---- deformable MV-KPConv, the KPFCNN and KPCNN baselines ----
     other_paths = check_deform_and_baselines(dev, batch, smi, small, full_row, train_row)
@@ -3366,6 +3581,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         torch.backends.cudnn.allow_tf32 = True
         entry_paths = check_train_scannet(dev, smi, Path(tmp))
+        entry_paths.update(check_cli_fusions(dev, smi, Path(tmp)))
         torch.backends.cudnn.allow_tf32 = False
         check_trainer_parity(dev, small, Path(tmp))
         # ---- the mvpnet fork's workflow: train_2d, test_2d, train_mvpnet,
@@ -3376,6 +3592,7 @@ def main() -> int:
     mvpnet_parity = check_mvpnet_parity(dev, smi)
     # ---- a JAX run resumed with its optimizer state, deformable inspection
     # at full width, the serving export on both paths, the variant matrix
+    small_middle = small.replace(fusion="middle", batch_num=2)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         serving_paths = {"resume_jax_run": check_resume_jax_run(dev, small, tmp),
@@ -3383,6 +3600,12 @@ def main() -> int:
                          "export_full": check_export("export_full", cfg, dev, batch, smi, full_row, tmp),
                          "export_full_fused": check_export("export_full_fused", fused, dev, batch, smi,
                                                            fused_row, tmp),
+                         "export_full_late": check_export("export_full_late", fusion_config("late"), dev, batch,
+                                                          smi, fusion_rows["full_late"], tmp),
+                         "export_small_middle": check_export(
+                             "export_small_middle", small_middle, dev,
+                             batch_to_device(make_batch(small_middle, 2, np.random.RandomState(1)), dev), smi, None,
+                             tmp, label=f"{small_label}, B=2, fusion=middle, f32"),
                          "export_mvpnet": check_export_mvpnet(dev, smi, mv_scenes, tmp)}
         torch.backends.cudnn.allow_tf32 = True  # as a user runs the tool
         serving_paths.update(check_measure_variants(dev, tmp))
@@ -3395,7 +3618,7 @@ def main() -> int:
     # ---- data parallelism: two gloo processes on this card, NCCL at world size 1
     ddp_paths = check_ddp(dev, raw, smi)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
-               "train_full_fused": fused_train_launches, **other_paths, **remat_paths, **entry_paths,
+               "train_full_fused": fused_train_launches, **fusion_paths, **other_paths, **remat_paths, **entry_paths,
                **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths, **ddp_paths}
 
     def path_launches(*names):
@@ -3414,6 +3637,8 @@ def main() -> int:
     k1_colmap = next(r for r in k1_rows if r["phase"] == "k1_L0_conv_colmap")
     k2_colmap = next(r for r in k2_rows if r["phase"] == "k2_colmap_bfloat16")
 
+    fusion_site_names = ("k3_L0_simple_2d", "k4_L0_simple_2d", "k4_L0_simple_3d")
+
     def k4_entry(name, part, count):
         return {"name": name, "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/kpconv.cu",
                 "replaces": "mvkpconv_tpu/ops/pallas/kpconv.py:135", "launches": count,
@@ -3421,7 +3646,11 @@ def main() -> int:
                                    if f"{part}_max_abs_err" in r),
                 "ms": k4_main[part]["ms"], "plain_ms": k4_main[part]["plain_ms"],
                 "bound_ms": k4_main[part]["bound_ms"], "bound_by": k4_main[part]["bound_by"],
-                "library_ms": None}
+                "library_ms": None,
+                # middle and late fusion's first blocks (timed like the level-0 sites)
+                "fusion_sites": [{"phase": r["phase"], "cin": r["cin"], "cout": r["cout"],
+                                  **{x: r[part][x] for x in ("ms", "plain_ms", "bound_ms", "bound_by")}}
+                                 for r in k4_rows if r["phase"].startswith(fusion_site_names) and part in r]}
 
     emit({"kernels": [
         {"name": "radius_topk", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/radius_topk.cu",
@@ -3465,7 +3694,10 @@ def main() -> int:
          "bf16_rows": {x: k3_bf16[x] for x in ("ms", "bound_ms", "earlier_ms", "library_ms")},
          "pn2_sites": [{x: r[x] for x in ("phase", "nq", "k", "ns", "c", "ms", "first_call_ms", "plan_ms",
                                           "plain_ms", "library_ms", "bound_ms", "bound_by", "err_over_allowance")}
-                       for r in k3_pn2]},
+                       for r in k3_pn2],
+         "fusion_sites": [{x: r[x] for x in ("phase", "c", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                             "err_over_allowance")}
+                          for r in k3_rows if r["phase"].startswith(fusion_site_names)]},
         {**k4_entry("kpconv_fused", "fwd", fused_launches["kpconv_fused_fwd"]),
          "einsum_chain_ms": k4_main["fwd"]["einsum_chain_ms"],
          "launches_by_path": path_launches("kpconv_fused_fwd")},

@@ -9,7 +9,7 @@ caller names another (``device="cpu"`` runs every kernel's plain version).
 the mvpnet fork's models (MVPNet3D, PN2SSG, the UNet alone). Usage::
 
     cfg = bench_config()  # or fused_config(), deform_config(), baseline_config(),
-                          # or fusion="middle" / "late"
+                          # fusion_config("middle") / fusion_config("late")
     model = make_model(cfg, seed=0)
     batch = batch_to_device(make_batch(cfg, 4, np.random.RandomState(0)), "cuda")
     logits = infer(model, batch)  # (B, N0, num_classes) f32
@@ -56,6 +56,15 @@ def fused_config() -> KPConfig:
     recomputes its influence inside kernel K4 and no (B, N, K, M) tensor is
     kept."""
     return bench_config().replace(**FUSED_OPTIONS)
+
+
+def fusion_config(fusion: str) -> KPConfig:
+    """The bench configuration with ``fusion`` (early, middle or late): the
+    same 2 base columns ⊕ 64 lifted ones, pyramid, views and width. Middle
+    fusion runs two encoders (``encoder_3d`` on the base columns,
+    ``encoder_2d`` on ones ⊕ the lifted features), late fusion one encoder
+    on the base columns, the lifted features joined before the head."""
+    return bench_config().replace(fusion=fusion)
 
 
 def baseline_config() -> KPConfig:

@@ -1,22 +1,28 @@
 """Where the inference slice's (or the train step's) time goes on one GPU.
 
     python3 -m mvkpconv_tpu_torch.tools.profile_infer [--train | --serving] [--fused]
-        [--config bench|deform|baseline] [--out DIR]
+        [--config bench|middle|late|deform|baseline] [--out DIR]
 
 At the bench configuration (B=4, N0=16384, 5 levels, K=30, 5 views of
 120×160, width 128, bf16, seeded random weights), or with ``--fused`` at the
 same configuration on the fused KPConv path (``use_pallas_kpconv=True``,
 ``influence_cache='none'``: kernel K4 in every conv block, no influence
 cache), it prints one line per hand-written kernel (its device time and
-launches per forward or step) and then one JSON line. ``--config deform``
-takes ``infer.deform_config()`` (blocks 9–13 deformable) and ``--config
-baseline`` ``infer.baseline_config()`` (the 3D-only KPFCNN: no UNet, no
+launches per forward or step) and then one JSON line. ``--config middle``
+and ``--config late`` take the bench configuration with middle or late
+fusion (``infer.fusion_config``: two encoders, ``encoder_3d`` on the 2 base
+columns and ``encoder_2d`` on ones ⊕ the lifted features, their skips
+concatenated; or one encoder on the base columns and the lifted features
+joined after the decoder), ``--config deform`` ``infer.deform_config()``
+(blocks 9–13 deformable) and ``--config baseline``
+``infer.baseline_config()`` (the 3D-only KPFCNN: no UNet, no
 FeatureAggregation, no lift) in place of the bench configuration:
 
   * ``stage_ms``: device time per forward (or per train step) by stage,
     from CUDA events around the unmodified code, mean of 5 runs after a
     warm-up. Forward: the pyramid and the model's submodules (UNet,
-    FeatureAggregation, encoder, decoder, head); ``other`` is the rest of
+    FeatureAggregation, encoder, or ``encoder_3d`` and ``encoder_2d`` in
+    middle fusion, decoder, head); ``other`` is the rest of
     the model forward (unprojection, pixel association through K2, the
     lift gather, the influence cache). ``--train``: the pyramid, the
     forward (the model's submodules as above), the backward (the loss, then
@@ -48,7 +54,7 @@ between the eager forward and the artifact.
 
 The full profiler table goes to ``DIR/profile_infer.txt`` (or
 ``profile_train.txt``, each with ``_fused`` before the dot under ``--fused``
-and ``_deform`` or ``_baseline`` under ``--config``; default ``outputs/``,
+and ``_middle``, ``_late``, ``_deform`` or ``_baseline`` under ``--config``; default ``outputs/``,
 which git ignores).
 """
 
@@ -70,15 +76,17 @@ from mvkpconv_tpu_torch.infer import (
     batch_to_device,
     bench_config,
     deform_config,
+    fusion_config,
     make_model,
 )
 from mvkpconv_tpu_torch.models.blocks import KPConvLayer
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.train import make_trainer
 
-CONFIGS = {"bench": bench_config, "deform": deform_config, "baseline": baseline_config}
+CONFIGS = {"bench": bench_config, "middle": lambda: fusion_config("middle"),
+           "late": lambda: fusion_config("late"), "deform": deform_config, "baseline": baseline_config}
 
-STAGES = ("net_2d", "feat_aggreg", "encoder", "decoder", "head")
+STAGES = ("net_2d", "feat_aggreg", "encoder", "encoder_3d", "encoder_2d", "decoder", "head")
 # the hand-written kernels, by a part of their profiler names
 OWN_KERNELS = {
     "k1_radius_topk": ("radius_topk_kernel", "radius_boxes_kernel"),
@@ -286,7 +294,8 @@ def main(argv=None) -> None:
     ap.add_argument("--fused", action="store_true",
                     help="the fused KPConv path (K4, no influence cache)")
     ap.add_argument("--config", choices=sorted(CONFIGS), default="bench",
-                    help="the bench configuration, its deformable variant or the KPFCNN baseline")
+                    help="the bench configuration (early fusion), middle or late fusion, its "
+                         "deformable variant or the KPFCNN baseline")
     ap.add_argument("--out", default="outputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

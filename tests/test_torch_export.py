@@ -3,13 +3,16 @@
 
   * The exported program (``torch.export``, saved and loaded back) gives the
     eager model's probabilities within 1e-6 of the largest, on a batch with
-    padded rows, for the KPFCNN and MV-KPConv early fusion; the program calls
+    padded rows, for the KPFCNN and MV-KPConv early, middle and late fusion
+    (late fusion's head takes the decoder's output ⊕ the lifted features,
+    which the program carries past the trunk); the program calls
     K1 and K2 as the operators ``mvkpconv::radius_topk`` (one a selection of
     the pyramid) and ``mvkpconv::pixel_topk``, and on the fused path K4's
     forward as ``mvkpconv::kpconv_fused_fwd`` (one a conv block):
     nothing of them is decomposed into the plain versions' ops.
   * Against the JAX package's export of the same weights
-    (``tests/test_export.py:80``; the KPFCNN, and MV-KPConv early fusion in
+    (``tests/test_export.py:80``, whose ``export_inference`` takes any
+    fusion: the KPFCNN, MV-KPConv middle and late fusion, and early fusion in
     the slow tier, as it exports the UNet a second time on each side), both
     on the default path, the port's program the one held to the eager model
     above: the logits contract of ROADMAP queue 3 in f32 (max |Δ logit| ≤
@@ -68,8 +71,8 @@ TINY = dict(
     image_width=32, batch_num=1,
 )
 FUSION = {"none": dict(fusion="none", in_features_dim=2, feature_2d_dim=0),
-          "early": dict(fusion="early", in_features_dim=66, feature_2d_dim=64,
-                        pixel_patch_dtype="float32")}
+          **{f: dict(fusion=f, in_features_dim=66, feature_2d_dim=64, pixel_patch_dtype="float32")
+             for f in ("early", "middle", "late")}}
 
 
 def make_inputs(cfg, kind, seed=0):
@@ -126,7 +129,7 @@ def exported(fusion, fused):
 
 
 # the default paths: test_export_meets_the_logits_contract_against_the_jax_export
-@pytest.mark.parametrize("fusion, fused", [("none", False), ("early", True)])
+@pytest.mark.parametrize("fusion, fused", [("none", False), ("early", True), ("middle", False), ("late", False)])
 def test_exported_program_equals_the_eager_model(fusion, fused, tmp_path):
     cfg, model, data = exported(fusion, fused)
     kind = E.infer_kind(cfg)
@@ -146,8 +149,9 @@ def test_exported_program_equals_the_eager_model(fusion, fused, tmp_path):
     assert not any("topk" in c and "mvkpconv" not in c for c in calls)  # no plain K1/K2 inside
 
 
-# early fusion exports the UNet a second time on each side
-@pytest.mark.parametrize("fusion", ["none", pytest.param("early", marks=pytest.mark.slow)])
+# early fusion exports the UNet a second time on each side (its artifact
+# above is the fused path's); middle and late reuse theirs
+@pytest.mark.parametrize("fusion", ["none", pytest.param("early", marks=pytest.mark.slow), "middle", "late"])
 def test_export_meets_the_logits_contract_against_the_jax_export(fusion):
     cfg, model, data = exported(fusion, False)
     jcfg, jmodel, variables = jax_weights(fusion)
