@@ -293,6 +293,23 @@ Phases, each printed as one JSON line:
      one, ms, device busy and peak a step; with phase 25 export_full_late
      (phase 25 at the bench configuration with late fusion) and
      export_small_middle (middle fusion at phase 5's configuration, B=2).
+ 32. tracing_early, tracing_middle: the program's tracer
+     (``mvkpconv_tpu_torch/tracing.py``) on an eval step of the benchmark
+     cells' model (the bench configuration in f32, B=5, 34 neighbours a
+     level, a third of each sphere's slots real), early and middle fusion:
+     every synchronising call of a step with the tracer on
+     (``torch.cuda.set_sync_debug_mode``), each with the innermost span open
+     then and the program's line that made it, none outside a ``sync.*``
+     span; the step's host ms to its return and to a synchronise, the
+     tracer off and on in turns (its cost), and the step's host ms under
+     ``torch.profiler``; the records held to the plan (the span names, K1's
+     query rows and real rows equal to the pyramid's masks, 13 K1 calls,
+     26 device launches and 1 K2 launch a step, ``lift.unet`` within
+     ``lift``), each span's device and host ms a step, a span site's host
+     µs off and on (and a CUDA event's creation and record alone), and
+     ``tracing.split_profile`` over 5 profiled steps (idle inside and
+     outside ``step``, which add up to the window's idle; launches a step;
+     idle, launches and kernel ms by span).
 
 Every phase's line carries ``t_s``, the script's seconds so far.
 
@@ -362,6 +379,7 @@ def device_ms_by(fn, reps=20, names=()):
     """``device_ms`` of ``fn``, and of the kernels whose name holds each of
     ``names``: ``{"total": ms, name: ms, ...}`` per call."""
     import torch
+    from mvkpconv_tpu_torch.tracing import PREFIX
 
     fn()
     torch.cuda.synchronize()
@@ -371,7 +389,9 @@ def device_ms_by(fn, reps=20, names=()):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the device's kernels, copies and fills, not the program's ranges' device-side annotations
+        kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.key.startswith(PREFIX)]
         total = sum(e.self_device_time_total for e in kernels)
         if total > 0:
             return {"total": total / 1e3 / reps,
@@ -1258,9 +1278,9 @@ def reset_launches():
 def read_launches():
     """Each wrapper's count of calls that launched its kernel; K1 makes two
     device launches a call (the box pre-pass and the search), counted too."""
-    counters = kernel_counters()
-    return {**{name: fn.launches for name, fn in counters.items()},
-            "radius_topk_device": counters["radius_topk"].device_launches}
+    from mvkpconv_tpu_torch.tracing import launch_counts
+
+    return launch_counts()
 
 
 def config_label(cfg, what=""):
@@ -3304,6 +3324,177 @@ def ddp_world1_worker(rank, world, raw):
             "backend": dist.get_backend()}
 
 
+TRACED_SPANS = {"step", "pyramid", "pyramid.neighbors", "pyramid.subsample", "sync.subsample", "model", "lift",
+                "lift.unproject", "lift.pixel_select", "lift.unet", "lift.gather", "lift.aggregate", "influence",
+                "sync.kernel_points", "decoder", "head", "softmax"}
+
+
+def cell_config(fusion):
+    """The benchmark cells' model: the bench configuration in f32 with B=5
+    and 34 neighbours a level (``portbench/configs/mvkpconv_*.json``)."""
+    import torch
+    from mvkpconv_tpu_torch.infer import fusion_config
+
+    return fusion_config(fusion).replace(compute_dtype=torch.float32, pixel_patch_dtype="float32", batch_num=5,
+                                         conv_neighbors=(34,) * 5, pool_neighbors=(34,) * 4)
+
+
+def step_syncs(step, batch):
+    """Every call of ``step(batch)`` that ``torch.cuda.set_sync_debug_mode``
+    reports as synchronising, with the tracer on: the innermost span open
+    then and the program's line that made it."""
+    import traceback
+    import warnings
+
+    import torch
+    from mvkpconv_tpu_torch import tracing
+
+    found = []
+
+    def seen(message, *args, **kwargs):
+        if "called a synchronizing" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack() if "mvkpconv_tpu_torch" in f.filename
+                  and not f.filename.endswith("tracing.py")]
+        stack = tracing._open_spans()
+        found.append({"span": stack[-1]["name"] if stack else None,
+                      "where": f"{Path(frames[-1].filename).name}:{frames[-1].lineno}" if frames else None})
+
+    torch.cuda.synchronize()
+    tracing.enable()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    tracing.disable()
+    torch.cuda.synchronize()
+    tracing.export()
+    return found
+
+
+def check_tracing(dev, smi, reps=10, profiled=5):
+    """Phase 32 (the module's docstring)."""
+    import numpy as np
+    import torch
+    from mvkpconv_tpu_torch import tracing
+    from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
+    from mvkpconv_tpu_torch.infer import batch_to_device, make_model
+    from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
+    from mvkpconv_tpu_torch.training.steps import make_eval_step
+
+    def per_call_us(fn, n=2000):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e6
+
+    def empty_span():
+        with tracing.span("x"):
+            pass
+
+    # a span site's host cost: off, on (two CUDA events, the launch counters),
+    # and one CUDA event's creation and record alone
+    site_us = {"off": per_call_us(empty_span), "event": per_call_us(lambda: torch.cuda.Event(enable_timing=True).record())}
+    tracing.enable()
+    site_us["on"] = per_call_us(empty_span)
+    tracing.disable()
+    tracing.export()
+    rows = {}
+    for fusion in ("early", "middle"):
+        cfg = cell_config(fusion)
+        raw = make_batch(cfg, cfg.batch_num, np.random.RandomState(5))
+        real = cfg.num_points[0] // 3
+        raw["mask"][:, real:] = False
+        raw["points"][:, real:] = 1e6
+        batch = batch_to_device(raw, dev)
+        step = make_eval_step(make_model(cfg, dev, seed=0), cfg)
+        for _ in range(3):  # warm-up (cuDNN autotune, allocator)
+            step(batch)
+        syncs = step_syncs(step, batch)
+
+        times = {"off": [], "on": []}
+        for i in range(2 * reps):
+            on = i % 2 == 1
+            torch.cuda.synchronize()
+            if on:
+                tracing.enable()
+            t0 = time.perf_counter()
+            step(batch)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            tracing.disable()
+            times["on" if on else "off"].append(((t1 - t0) * 1e3, (t2 - t0) * 1e3))
+            if on and i < 2 * reps - 1:
+                tracing.export()
+        records = tracing.export()  # the last traced step
+        cost = {k: {"host_ms": float(np.median([h for h, _ in v])), "synced_ms": float(np.median([s for _, s in v]))}
+                for k, v in times.items()}
+
+        masks = build_pyramid(batch["points"], batch["mask"], cfg.pyramid_spec()).masks
+        want_rows = []
+        for level in range(len(masks)):
+            want_rows.append((masks[level].numel(), int(masks[level].sum())))
+            if level + 1 < len(masks):
+                want_rows += [(masks[level + 1].numel(), int(masks[level + 1].sum())),
+                              (masks[level].numel(), int(masks[level].sum()))]
+        rows_got = [(r["rows"], r["real_rows"]) for r in records if r["name"] == "pyramid.neighbors"]
+        device_ms, host_ms = {}, {}
+        for r in records:
+            device_ms[r["name"]] = device_ms.get(r["name"], 0.0) + r["device_ms"]
+            host_ms[r["name"]] = host_ms.get(r["name"], 0.0) + (r["t1_ns"] - r["t0_ns"]) / 1e6
+        launches = next(r for r in records if r["name"] == "step")["launches"]
+
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        tracing.enable()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(profiled):
+                step(batch)
+            torch.cuda.synchronize()
+        tracing.disable()
+        profiled_host = [(r["t1_ns"] - r["t0_ns"]) / 1e6 for r in tracing.export() if r["name"] == "step"]
+        split = tracing.split_profile(prof.events())
+        n = split["steps"]
+        idle = sum(split["idle_ms"]["self"].values())
+        inside = split["idle_ms"]["total"].get("step", 0.0)
+        row = {
+            "phase": f"tracing_{fusion}",
+            "config": f"the cells' model: {fusion} fusion, f32, B=5, N0=16384, 34 neighbours, 5 views of 120x160, "
+                      "width 128, a third of each sphere's slots real",
+            "syncs": syncs, "syncs_outside_sync_spans": sum(1 for x in syncs if not (x["span"] or "").startswith("sync.")),
+            "step_ms_tracer_off": cost["off"], "step_ms_tracer_on": cost["on"],
+            "step_host_ms_profiled": float(np.mean(profiled_host)), "span_site_host_us": site_us,
+            "device_ms_by_span": device_ms, "host_ms_by_span": host_ms, "launches_a_step": launches,
+            "k1_rows": rows_got, "k1_real_share": sum(r for _, r in rows_got) / sum(q for q, _ in rows_got),
+            "split": {"steps": n, "window_ms": split["window_ms"] / n, "busy_ms": split["busy_ms"] / n,
+                      "idle_ms": idle / n, "idle_in_step_ms": inside / n, "idle_outside_step_ms": (idle - inside) / n,
+                      "launches_in_step": split["launches"]["total"].get("step", 0) / n,
+                      "idle_ms_by_span": {k: v / n for k, v in split["idle_ms"]["self"].items()},
+                      "launches_by_span": {k: v / n for k, v in split["launches"]["self"].items()},
+                      "kernel_ms_by_span": {k: v / n for k, v in split["kernel_ms"]["self"].items()}},
+            "card": smi,
+        }
+        emit(row)
+        names = {r["name"] for r in records}
+        want = TRACED_SPANS | ({"encoder"} if fusion == "early" else {"encoder_3d", "encoder_2d"})
+        assert want <= names, want - names
+        assert rows_got == want_rows, (rows_got, want_rows)
+        assert launches.get("radius_topk") == 13 and launches.get("radius_topk_device") == 26, launches
+        assert launches.get("pixel_topk") == 1, launches
+        assert 0 < device_ms["lift.unet"] <= device_ms["lift"] <= device_ms["model"], device_ms
+        assert abs(idle - (split["window_ms"] - split["busy_ms"])) <= 1e-6 * split["window_ms"], split
+        assert n == profiled, split["steps"]
+        assert row["syncs_outside_sync_spans"] == 0, syncs
+        rows[fusion] = row
+    return rows
+
+
 def check_ddp(dev, raw, smi, steps=5):
     """``ddp_gloo_2proc``: two processes on ``cuda:0`` over gloo (NCCL
     refuses two ranks on one card; gloo's all-reduce and broadcast take CUDA
@@ -3617,6 +3808,8 @@ def main() -> int:
         custom_paths = check_custom_dataset(dev, smi, Path(tmp), k1_rows, k2_rows)
     # ---- data parallelism: two gloo processes on this card, NCCL at world size 1
     ddp_paths = check_ddp(dev, raw, smi)
+    # ---- the program's tracer: synchronising calls, its cost, its records
+    check_tracing(dev, smi)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
                "train_full_fused": fused_train_launches, **fusion_paths, **other_paths, **remat_paths, **entry_paths,
                **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths, **ddp_paths}

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.models.kpfcnn import KPCNN, KPFCNN
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv
 from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D
@@ -161,7 +162,8 @@ def model_pyramid(model: nn.Module, batch: Dict[str, torch.Tensor]) -> Optional[
 
 
 def batch_to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    return {k: torch.tensor(np.asarray(v), device=device) for k, v in batch.items()}
+    with tracing.span("handoff"):
+        return {k: torch.tensor(np.asarray(v), device=device) for k, v in batch.items()}
 
 
 @torch.inference_mode()

@@ -15,6 +15,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.models import blocks as B
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions
 from mvkpconv_tpu_torch.ops.pyramid import Pyramid
@@ -104,7 +105,8 @@ def build_influence_cache(cfg, plans, pyr: Pyramid):
     for (kind, layer), r in sorted(_influence_keys(plans).items()):
         extent = r * cfg.kp_extent / cfg.conv_radius
         q, inds = _site(kind, layer, pyr)
-        kp = torch.from_numpy(kernel_point_positions(r, cfg.num_kernel_points)).to(q.device)
+        with tracing.span("sync.kernel_points"):  # a copy from host memory: waits for the device
+            kp = torch.from_numpy(kernel_point_positions(r, cfg.num_kernel_points)).to(q.device)
         all_w = B.rigid_influence(
             q, pyr.points[layer], inds, kp, extent,
             cfg.kp_influence, cfg.aggregation_mode,
@@ -124,7 +126,8 @@ def make_influence_cache(cfg, plans, pyr: Pyramid):
     needed = _influence_keys(plans)
     if influence_cache_bytes(cfg, needed, pyr) > cfg.influence_cache_budget_mb * 2**20:
         return None
-    return build_influence_cache(cfg, plans, pyr)
+    with tracing.span("influence"):
+        return build_influence_cache(cfg, plans, pyr)
 
 
 class _BlockList(nn.Module):
@@ -200,10 +203,14 @@ class KPFCNN(nn.Module):
         return (self.encoder,)
 
     def forward(self, features: torch.Tensor, pyr: Pyramid) -> torch.Tensor:
-        infl = make_influence_cache(self.cfg, (self.encoder.plan, self.decoder.plan), pyr)
-        x, skips = self.encoder(features.float(), pyr, infl)
-        x = self.decoder(x, skips, pyr, infl)
-        return self.head(x, pyr.masks[0])
+        with tracing.span("model"):
+            infl = make_influence_cache(self.cfg, (self.encoder.plan, self.decoder.plan), pyr)
+            with tracing.span("encoder"):
+                x, skips = self.encoder(features.float(), pyr, infl)
+            with tracing.span("decoder"):
+                x = self.decoder(x, skips, pyr, infl)
+            with tracing.span("head"):
+                return self.head(x, pyr.masks[0])
 
 
 class KPCNN(nn.Module):

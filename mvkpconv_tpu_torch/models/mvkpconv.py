@@ -29,6 +29,7 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.models.feature_aggregation import FeatureAggregation
 from mvkpconv_tpu_torch.models.kpfcnn import (
     KPFCNNDecoder,
@@ -118,55 +119,67 @@ class MVKPConv(nn.Module):
 
     def lift_2d_features(self, batch: Dict[str, torch.Tensor], points: torch.Tensor):
         """UNet over all views → gather K pixels per point → aggregate to 64-d."""
-        cfg = self.cfg
-        images = batch["images"]
-        b, v, h, w, _ = images.shape
-        if "image_xyz" in batch:
-            image_xyz = batch["image_xyz"]
-        else:
-            image_xyz, _ = unproject_depth(batch["depth"], batch["intrinsics"], batch["poses"])
-        if "knn_indices" in batch:
-            knn_idx = batch["knn_indices"]
-        elif cfg.pixel_assoc == "projective" and "poses" in batch:
-            cfg.port_option("pixel_select")
-            knn_idx = points_to_pixel_knn_projective(
-                points, image_xyz, batch["intrinsics"], batch["poses"],
-                cfg.pixel_knn, window=cfg.pixel_window,
-                patch_dtype=as_torch_dtype(cfg.pixel_patch_dtype),
-            )
-        else:  # no poses, or pixel_assoc='exact': the global nearest pixels
-            knn_idx = points_to_pixel_knn(points, image_xyz, cfg.pixel_knn)
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_2d):
-            preds = self.net_2d(images.reshape(b * v, h, w, 3))
-        feat = preds["feature"].reshape(b, v * h * w, -1).to(cfg.compute_dtype)
-        xyz_src = image_xyz.reshape(b, v * h * w, 3).float()
-        pixel_xyz, pixel_feat = group_points_joint(xyz_src, feat, knn_idx)
-        return self.feat_aggreg(pixel_xyz, points, pixel_feat)
+        with tracing.span("lift"):
+            cfg = self.cfg
+            images = batch["images"]
+            b, v, h, w, _ = images.shape
+            if "image_xyz" in batch:
+                image_xyz = batch["image_xyz"]
+            else:
+                with tracing.span("lift.unproject"):
+                    image_xyz, _ = unproject_depth(batch["depth"], batch["intrinsics"], batch["poses"])
+            if "knn_indices" in batch:
+                knn_idx = batch["knn_indices"]
+            elif cfg.pixel_assoc == "projective" and "poses" in batch:
+                cfg.port_option("pixel_select")
+                with tracing.span("lift.pixel_select"):
+                    knn_idx = points_to_pixel_knn_projective(
+                        points, image_xyz, batch["intrinsics"], batch["poses"],
+                        cfg.pixel_knn, window=cfg.pixel_window,
+                        patch_dtype=as_torch_dtype(cfg.pixel_patch_dtype),
+                    )
+            else:  # no poses, or pixel_assoc='exact': the global nearest pixels
+                with tracing.span("lift.pixel_select"):
+                    knn_idx = points_to_pixel_knn(points, image_xyz, cfg.pixel_knn)
+            with tracing.span("lift.unet"), torch.set_grad_enabled(torch.is_grad_enabled() and not self.freeze_2d):
+                preds = self.net_2d(images.reshape(b * v, h, w, 3))
+            with tracing.span("lift.gather"):
+                feat = preds["feature"].reshape(b, v * h * w, -1).to(cfg.compute_dtype)
+                xyz_src = image_xyz.reshape(b, v * h * w, 3).float()
+                pixel_xyz, pixel_feat = group_points_joint(xyz_src, feat, knn_idx)
+            with tracing.span("lift.aggregate"):
+                return self.feat_aggreg(pixel_xyz, points, pixel_feat)
 
     def forward(self, batch: Dict[str, torch.Tensor], pyr: Pyramid) -> torch.Tensor:
         """Per-point logits (B, N0, num_classes), f32."""
-        cfg = self.cfg
-        points0 = pyr.points[0]
-        if "feature_2d3d" in batch:
-            feat_2d3d = batch["feature_2d3d"].float().detach()
-        else:
-            feat_2d3d = self.lift_2d_features(batch, points0)
-        base = batch["features"].float()
-        # one influence cache for every rigid conv block, and for both
-        # middle-fusion encoders (the same geometry per level)
-        infl = make_influence_cache(cfg, (self.encoders[0].plan, self.decoder.plan), pyr)
-        if cfg.fusion == "early":
-            x, skips = self.encoder(torch.cat([base, feat_2d3d], dim=-1), pyr, infl)
-            x = self.decoder(x, skips, pyr, infl)
-        elif cfg.fusion == "middle":
-            x3d, skips3d = self.encoder_3d(base, pyr, infl)
-            ones = torch.ones_like(feat_2d3d[..., :1])
-            x2d, skips2d = self.encoder_2d(torch.cat([ones, feat_2d3d], dim=-1), pyr, infl)
-            x = 0.5 * (x3d + x2d)
-            skips = [torch.cat([a, b], dim=-1) for a, b in zip(skips3d, skips2d)]
-            x = self.decoder(x, skips, pyr, infl)
-        else:  # late
-            x, skips = self.encoder(base, pyr, infl)
-            x = self.decoder(x, skips, pyr, infl)
-            x = torch.cat([x, feat_2d3d], dim=-1)
-        return self.head(x, pyr.masks[0])
+        with tracing.span("model"):
+            cfg = self.cfg
+            points0 = pyr.points[0]
+            if "feature_2d3d" in batch:
+                feat_2d3d = batch["feature_2d3d"].float().detach()
+            else:
+                feat_2d3d = self.lift_2d_features(batch, points0)
+            base = batch["features"].float()
+            # one influence cache for every rigid conv block, and for both
+            # middle-fusion encoders (the same geometry per level)
+            infl = make_influence_cache(cfg, (self.encoders[0].plan, self.decoder.plan), pyr)
+            if cfg.fusion == "early":
+                with tracing.span("encoder"):
+                    x, skips = self.encoder(torch.cat([base, feat_2d3d], dim=-1), pyr, infl)
+            elif cfg.fusion == "middle":
+                with tracing.span("encoder_3d"):
+                    x3d, skips3d = self.encoder_3d(base, pyr, infl)
+                with tracing.span("encoder_2d"):
+                    ones = torch.ones_like(feat_2d3d[..., :1])
+                    x2d, skips2d = self.encoder_2d(torch.cat([ones, feat_2d3d], dim=-1), pyr, infl)
+                x = 0.5 * (x3d + x2d)
+                skips = [torch.cat([a, b], dim=-1) for a, b in zip(skips3d, skips2d)]
+            else:  # late
+                with tracing.span("encoder"):
+                    x, skips = self.encoder(base, pyr, infl)
+            with tracing.span("decoder"):
+                x = self.decoder(x, skips, pyr, infl)
+            if cfg.fusion == "late":
+                x = torch.cat([x, feat_2d3d], dim=-1)
+            with tracing.span("head"):
+                return self.head(x, pyr.masks[0])

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.ops.kernels.segsum import attach_plans
 from mvkpconv_tpu_torch.ops.neighbors import radius_neighbors
 from mvkpconv_tpu_torch.ops.sampling import grid_subsample
@@ -181,27 +182,32 @@ def build_pyramid(
             f"level-0 budget mismatch: points {points.shape[1]} vs spec "
             f"{spec.num_points[0]}"
         )
-    pts, msks = [points], [mask]
-    neighbors, pools, upsamples = [], [], []
-    for level in range(spec.num_levels):
-        p, m = pts[level], msks[level]
-        neighbors.append(
-            radius_neighbors(p, p, spec.radius(level), spec.conv_k(level))
+    with tracing.span("pyramid"):
+        pts, msks = [points], [mask]
+        neighbors, pools, upsamples = [], [], []
+        for level in range(spec.num_levels):
+            p, m = pts[level], msks[level]
+            with tracing.span("pyramid.neighbors", level, m):
+                neighbors.append(
+                    radius_neighbors(p, p, spec.radius(level), spec.conv_k(level))
+                )
+            if level + 1 < spec.num_levels:
+                with tracing.span("pyramid.subsample", level + 1):
+                    sub = grid_subsample(
+                        p, spec.cell_size(level + 1), spec.num_points[level + 1], mask=m
+                    )
+                pts.append(sub.points)
+                msks.append(sub.mask)
+                rp = spec.pool_radius(level)
+                with tracing.span("pyramid.neighbors", level + 1, sub.mask):
+                    pools.append(radius_neighbors(sub.points, p, rp, spec.pool_k(level)))
+                # upsample: 1-NN into level l+1 within 2× the POOL radius
+                with tracing.span("pyramid.neighbors", level, m):
+                    upsamples.append(radius_neighbors(p, sub.points, 2.0 * rp, 1))
+        return Pyramid(
+            points=tuple(pts),
+            masks=tuple(msks),
+            neighbors=tuple(map(attach_plans, neighbors)),
+            pools=tuple(map(attach_plans, pools)),
+            upsamples=tuple(map(attach_plans, upsamples)),
         )
-        if level + 1 < spec.num_levels:
-            sub = grid_subsample(
-                p, spec.cell_size(level + 1), spec.num_points[level + 1], mask=m
-            )
-            pts.append(sub.points)
-            msks.append(sub.mask)
-            rp = spec.pool_radius(level)
-            pools.append(radius_neighbors(sub.points, p, rp, spec.pool_k(level)))
-            # upsample: 1-NN into level l+1 within 2× the POOL radius
-            upsamples.append(radius_neighbors(p, sub.points, 2.0 * rp, 1))
-    return Pyramid(
-        points=tuple(pts),
-        masks=tuple(msks),
-        neighbors=tuple(map(attach_plans, neighbors)),
-        pools=tuple(map(attach_plans, pools)),
-        upsamples=tuple(map(attach_plans, upsamples)),
-    )

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.ops.common import masked_points
 from mvkpconv_tpu_torch.ops.kernels.fps import farthest_point_sample  # noqa: F401
 
@@ -50,7 +51,8 @@ def grid_subsample(
     dev = points.device
     if mask is None:
         mask = torch.ones((b, n), dtype=torch.bool, device=dev)
-    inv_cell = torch.tensor(1.0 / cell_size, dtype=torch.float32, device=dev)
+    with tracing.span("sync.subsample"):  # a copy from host memory: waits for the device
+        inv_cell = torch.tensor(1.0 / cell_size, dtype=torch.float32, device=dev)
     big = torch.where(mask[..., None], points, torch.full_like(points, float("inf")))
     origin = torch.floor(big.amin(dim=1) * inv_cell).to(torch.int32)  # (B, 3)
     vox = torch.floor(points * inv_cell).to(torch.int32) - origin[:, None, :]

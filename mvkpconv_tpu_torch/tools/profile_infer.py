@@ -18,17 +18,22 @@ joined after the decoder), ``--config deform`` ``infer.deform_config()``
 ``infer.baseline_config()`` (the 3D-only KPFCNN: no UNet, no
 FeatureAggregation, no lift) in place of the bench configuration:
 
-  * ``stage_ms``: device time per forward (or per train step) by stage,
-    from CUDA events around the unmodified code, mean of 5 runs after a
-    warm-up. Forward: the pyramid and the model's submodules (UNet,
-    FeatureAggregation, encoder, or ``encoder_3d`` and ``encoder_2d`` in
-    middle fusion, decoder, head); ``other`` is the rest of
-    the model forward (unprojection, pixel association through K2, the
-    lift gather, the influence cache). ``--train``: the pyramid, the
-    forward (the model's submodules as above), the backward (the loss, then
-    autograd with every trunk gather's VJP through K3) and the optimizer
-    (value clip and SGD); ``deformable_kpconv``, where the model has
-    deformable layers, is their forward's share, inside ``encoder``;
+  * ``stage_ms``: device time per step by the program's spans
+    (``tracing``: ``step``, ``pyramid`` and its ``pyramid.neighbors`` and
+    ``pyramid.subsample``, ``model``, ``lift`` and its parts
+    ``lift.unproject``, ``lift.pixel_select``, ``lift.unet``,
+    ``lift.gather``, ``lift.aggregate``, ``influence``, the encoders,
+    ``decoder``, ``head``, ``softmax``; ``--train``: ``backward`` (the
+    loss, then autograd with every trunk gather's VJP through K3) and
+    ``optimizer`` (value clip and SGD) in place of ``softmax``), each
+    span's calls in a step summed, mean of 5 steps after a warm-up; the
+    step is ``make_eval_step``'s (``make_train_step``'s); ``step_host_ms``,
+    the host's time inside ``step``;
+  * ``split``: over the profiled steps (below), per step, the device's
+    idle ms by the innermost span open on the host (``outside``: none),
+    the launch calls and the kernels' device ms by the span that made
+    them, and the idle and launches inside ``step`` in all
+    (``tracing.split_profile``);
   * ``device_busy_ms`` and the top kernels by device time, per forward or
     step, from ``torch.profiler`` over 3 runs; ``kernel_sums_ms``: the
     hand-written kernels' device time per forward or step, summed by kernel
@@ -63,15 +68,16 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
 from mvkpconv_tpu_torch.infer import (
     FUSED_OPTIONS,
-    apply_model,
     baseline_config,
     batch_to_device,
     bench_config,
@@ -79,14 +85,12 @@ from mvkpconv_tpu_torch.infer import (
     fusion_config,
     make_model,
 )
-from mvkpconv_tpu_torch.models.blocks import KPConvLayer
-from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.train import make_trainer
+from mvkpconv_tpu_torch.training.steps import make_eval_step
 
 CONFIGS = {"bench": bench_config, "middle": lambda: fusion_config("middle"),
            "late": lambda: fusion_config("late"), "deform": deform_config, "baseline": baseline_config}
 
-STAGES = ("net_2d", "feat_aggreg", "encoder", "encoder_3d", "encoder_2d", "decoder", "head")
 # the hand-written kernels, by a part of their profiler names
 OWN_KERNELS = {
     "k1_radius_topk": ("radius_topk_kernel", "radius_boxes_kernel"),
@@ -98,84 +102,47 @@ OWN_KERNELS = {
 }
 
 
-def _event():
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record()
-    return ev
+def device_records(events):
+    """The kernels, copies and fills of a profiler's ``key_averages()``, not
+    the device-side annotations of the program's ranges."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(tracing.PREFIX)]
 
 
-def _hook_spans(model, spans):
-    """Record (start, end) events of each stage submodule the model has, of
-    each deformable KPConv layer and of the whole model forward into
-    ``spans``."""
-    open_ = {}
-    stages = [(n, getattr(model, n)) for n in STAGES if hasattr(model, n)]
-    deform = [(f"deformable_kpconv.{i}", m) for i, m in enumerate(
-        m for m in model.modules() if isinstance(m, KPConvLayer) and m.deformable)]
-    for name, mod in stages + deform + [("model", model)]:
-        mod.register_forward_pre_hook(lambda m, a, n=name: open_.__setitem__(n, _event()))
-        mod.register_forward_hook(
-            lambda m, a, o, n=name: spans.setdefault(n, []).append((open_.pop(n), _event()))
-        )
+def step_runner(cfg, dev, batch, train: bool):
+    """One eval step (``make_eval_step``), or one train step, on ``batch``."""
+    if train:
+        trainer = make_trainer(cfg, dev, seed=0)
+        return lambda: trainer.step(batch)
+    step = make_eval_step(make_model(cfg, dev, seed=0), cfg)
+    return lambda: step(batch)
 
 
-def inference_runner(cfg, dev, batch, spans):
-    model = make_model(cfg, dev, seed=0)
-    _hook_spans(model, spans)
-    spec = cfg.pyramid_spec()
-
-    @torch.inference_mode()
-    def run():
-        t0 = _event()
-        pyr = build_pyramid(batch["points"], batch["mask"], spec)
-        spans.setdefault("pyramid", []).append((t0, _event()))
-        apply_model(model, batch, pyr)
-
-    return run
+def stage_ms(records):
+    """Device ms a step of each span (its calls in a step summed), mean over
+    the steps, and the host ms of ``step``."""
+    steps = [r for r in records if r["name"] == "step"]
+    ids = {r["step"] for r in steps}
+    ms = defaultdict(float)
+    for r in records:
+        if r["step"] in ids:
+            ms[r["name"]] += r["device_ms"] / len(ids)
+    host = float(np.mean([(r["t1_ns"] - r["t0_ns"]) / 1e6 for r in steps]))
+    return dict(ms), host
 
 
-def train_runner(cfg, dev, batch, spans):
-    trainer = make_trainer(cfg, dev, seed=0)
-    _hook_spans(trainer.model, spans)
-    opt_step = trainer.optimizer.step
-
-    def timed_opt_step():
-        spans.setdefault("backward_end", []).append(_event())
-        opt_step()
-        spans.setdefault("optimizer_end", []).append(_event())
-
-    trainer.optimizer.step = timed_opt_step
-
-    def run():
-        spans.setdefault("step_start", []).append(_event())
-        trainer.step(batch)
-
-    return run
-
-
-def stage_ms(spans, train: bool):
-    ms = {k: float(np.mean([s.elapsed_time(e) for s, e in v]))
-          for k, v in spans.items() if k in STAGES + ("model", "pyramid")}
-    ms["other"] = ms["model"] - sum(ms[n] for n in STAGES if n in ms)
-    deform = [k for k in spans if k.startswith("deformable_kpconv.")]
-    if deform:
-        ms["deformable_kpconv"] = sum(
-            float(np.mean([s.elapsed_time(e) for s, e in spans[k]])) for k in deform)
-    if not train:
-        ms["forward"] = ms.pop("model") + ms["pyramid"]
-        return ms
-    def mean(starts, ends):
-        return float(np.mean([s.elapsed_time(e) for s, e in zip(starts, ends)]))
-
-    starts = spans["step_start"]
-    fwd_s = [s for s, _ in spans["model"]]
-    fwd_e = [e for _, e in spans["model"]]
-    ms["pyramid"] = mean(starts, fwd_s)
-    ms["forward"] = ms.pop("model")
-    ms["backward"] = mean(fwd_e, spans["backward_end"])
-    ms["optimizer"] = mean(spans["backward_end"], spans["optimizer_end"])
-    ms["step"] = mean(starts, spans["optimizer_end"])
-    return ms
+def split_per_step(prof):
+    """``tracing.split_profile`` of a profiler run, per step."""
+    split = tracing.split_profile(prof.events())
+    n = max(split["steps"], 1)
+    per = {part: {k: v / n for k, v in split[part]["self"].items()} for part in ("idle_ms", "launches", "kernel_ms")}
+    return {"steps": split["steps"], "window_ms": split["window_ms"] / n, "busy_ms": split["busy_ms"] / n,
+            "idle_in_step_ms": split["idle_ms"]["total"].get("step", 0.0) / n,
+            "idle_outside_step_ms": (sum(split["idle_ms"]["self"].values())
+                                     - split["idle_ms"]["total"].get("step", 0.0)) / n,
+            "launches_in_step": split["launches"]["total"].get("step", 0) / n,
+            "idle_ms_by_span": per["idle_ms"], "launches_by_span": per["launches"],
+            "kernel_ms_by_span": per["kernel_ms"]}
 
 
 def _vjp_kind(name: str) -> str:
@@ -261,7 +228,7 @@ def serving_profile(cfg, dev, batch, smi, rounds: int = 10, runs: int = 3):
     profiles, launches, op_counts = {}, {}, {}
     for name in ("eager", "artifact", "artifact_module_inference_mode"):
         events = _profile(runners[name], runs).key_averages()
-        dev_ev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ev = device_records(events)
         ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
                and e.key.startswith(("aten::", "mvkpconv::"))]
         launches[name] = {e.key[:80]: e.count / runs for e in dev_ev}
@@ -311,22 +278,19 @@ def main(argv=None) -> None:
     ).stdout.strip()
     if args.serving:
         return serving_profile(cfg, dev, batch, smi)
-    spans = {}
-    run = (train_runner if args.train else inference_runner)(cfg, dev, batch, spans)
+    run = step_runner(cfg, dev, batch, args.train)
 
     run()
-    spans.clear()
+    torch.cuda.synchronize()
+    tracing.enable()
     for _ in range(5):
         run()
-    torch.cuda.synchronize()
-    ms = stage_ms(spans, args.train)
+    tracing.disable()
+    ms, host_ms = stage_ms(tracing.export())
 
     prof = _profile(run)
     events = prof.key_averages()
-    kernels = sorted(
-        (e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
-        key=lambda e: e.self_device_time_total, reverse=True,
-    )
+    kernels = sorted(device_records(events), key=lambda e: e.self_device_time_total, reverse=True)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     name = ("profile_train" if args.train else "profile_infer") + ("_fused" if args.fused else "")
@@ -352,6 +316,8 @@ def main(argv=None) -> None:
         "card": smi, "mode": "train" if args.train else "inference", "config": args.config,
         "path": "fused (K4, influence_cache='none')" if args.fused else "default (einsum, prebuilt cache)",
         "stage_ms": ms,
+        "step_host_ms": host_ms,
+        "split": split_per_step(prof),
         "device_busy_ms": sum(e.self_device_time_total for e in kernels) / 3e3,
         "kernel_sums_ms": sums,
         "gather_vjp_ms": vjp,

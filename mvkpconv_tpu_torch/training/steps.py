@@ -53,6 +53,7 @@ import torch
 import torch.distributed
 from torch import nn
 
+from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.infer import apply_model, model_pyramid
 from mvkpconv_tpu_torch.ops.gather import gather_transpose
 from mvkpconv_tpu_torch.parallel.collectives import data_parallel, global_sum, group_size
@@ -72,14 +73,15 @@ def forward_backward(model: nn.Module, cfg, batch: Dict[str, torch.Tensor],
         pyr = model_pyramid(model, batch)
     with gather_transpose(cfg.port_option("gather_transpose")):
         logits = apply(batch, pyr) if apply is not None else apply_model(model, batch, pyr)
-        loss = segmentation_cross_entropy(
-            logits, batch["labels"], batch.get("mask"),
-            class_weights=cfg.class_weights, ignore_label=cfg.ignore_label,
-            label_smoothing=cfg.label_smoothing, balance=cfg.segloss_balance,
-        )
-        if pyr is not None and any("deform" in b for b in cfg.architecture):
-            loss = loss + deform_regularization(model, cfg.repulse_extent, cfg.deform_fitting_power)
-        (loss * loss_scale if loss_scale != 1.0 else loss).backward()
+        with tracing.span("backward"):
+            loss = segmentation_cross_entropy(
+                logits, batch["labels"], batch.get("mask"),
+                class_weights=cfg.class_weights, ignore_label=cfg.ignore_label,
+                label_smoothing=cfg.label_smoothing, balance=cfg.segloss_balance,
+            )
+            if pyr is not None and any("deform" in b for b in cfg.architecture):
+                loss = loss + deform_regularization(model, cfg.repulse_extent, cfg.deform_fitting_power)
+            (loss * loss_scale if loss_scale != 1.0 else loss).backward()
     return loss.detach(), logits.detach()
 
 
@@ -135,14 +137,15 @@ def make_train_step(model: nn.Module, cfg, optimizer: torch.optim.Optimizer, mes
 
     def step(batch):
         batch = {k: _local(v) for k, v in batch.items()}
-        optimizer.zero_grad(set_to_none=True)
-        with data_parallel(group):
+        with tracing.span("step"), data_parallel(group):
+            optimizer.zero_grad(set_to_none=True)
             loss, logits = forward_backward(model, cfg, batch, apply, loss_scale=float(size))
             for p in replicated:
                 if p.grad is not None:
                     torch.distributed.all_reduce(p.grad, group=group)
                     p.grad.div_(size)
-            optimizer.step()
+            with tracing.span("optimizer"):
+                optimizer.step()
             acc = accuracy(logits, batch["labels"], batch.get("mask"), cfg.ignore_label)
             return {"loss": global_sum(loss), "accuracy": acc}
 
@@ -154,7 +157,10 @@ def make_eval_step(model: nn.Module, cfg) -> Callable:
 
     @torch.inference_mode()
     def step(batch):
-        model.eval()
-        return torch.softmax(apply_model(model, batch, model_pyramid(model, batch)), dim=-1)
+        with tracing.span("step"):
+            model.eval()
+            logits = apply_model(model, batch, model_pyramid(model, batch))
+            with tracing.span("softmax"):
+                return torch.softmax(logits, dim=-1)
 
     return step
