@@ -156,7 +156,9 @@ Phases, each printed as one JSON line:
  18. the mvpnet fork's workflow, as a user runs it (PyTorch's TF32
      defaults): train_2d_full (``tools/train_2d.main`` at its defaults,
      UNet-ResNet34, B=8 frames of 120x160, lr 5e-3, f32: 3 steps, the
-     full-frame validation sweep, checkpoints), then ``tools/test_2d`` on
+     full-frame validation sweep, checkpoints; no hand-written kernel: at
+     PyTorch's TF32 default the frozen validation UNet runs on cuDNN, not
+     K5), then ``tools/test_2d`` on
      the run reproducing its last ``val_miou`` within 1e-6;
      train_mvpnet_full (``tools/train_mvpnet.main`` at its defaults: B=4
      chunks of 8192 points, 3 views of 120x160, PN2SSG at the published
@@ -208,10 +210,12 @@ Phases, each printed as one JSON line:
      CPU steps at phase 5's configuration, the UNet frozen, 'banded', the
      learning rate halved at step 2) resumed by ``Trainer.maybe_resume`` on
      the card and on the CPU, then one step each, f32, TF32 off: the
-     momentum restored bit for bit, the loss within 1e-5 relative, every
-     parameter and momentum buffer within phase 8's allowance, the decayed
-     learning rate and the schedule's count equal, K1 13, K2 1 and K3 once
-     a trunk gather;
+     momentum restored bit for bit, the card's frozen UNet within 1e-5
+     relative of the CPU's, and with the CPU's step fed the card's UNet
+     outputs (the step's backward is not continuous in them there) the loss
+     within 1e-5 relative, every parameter and momentum buffer within phase
+     8's allowance, the decayed learning rate and the schedule's count
+     equal, K1 13, K2 1 and K3 once a trunk gather;
  24. inspect_deform_full: ``eval/deform_inspect.inspect_deformable`` at
      ``infer.deform_config()`` on the bench batch: 5 deformable layers,
      finite statistics, a PLY and a viewer each, K1 13 calls (26 launches)
@@ -310,6 +314,20 @@ Phases, each printed as one JSON line:
      ``tracing.split_profile`` over 5 profiled steps (idle inside and
      outside ``step``, which add up to the window's idle; launches a step;
      idle, launches and kernel ms by span).
+ 33. unet_conv_site, unet_conv_unet: K5 (``csrc/unet_conv.cu``), the frozen
+     float32 UNet's convolution sites, at the cells' shape (25 images of
+     120x160) with seeded weights whose BNs hold the images' statistics,
+     TF32 off: each of the 45 sites of a forward against its plain version
+     (cuDNN float32 and PyTorch's elementwise ops) within 1e-5 relative
+     Frobenius error and equal bit for bit on a second run, both also held
+     to a float64 evaluation; the whole UNet's ``feature`` and ``seg_logit``
+     against the module path (cuDNN float32) within 1e-5, the same UNet with
+     single-pass TF32 (the control) beyond it; one forward on the K5 path
+     (``fused_calls``), its K5 and device launches (at most 60), ``feature``
+     contiguous; ms a site (kernel, plain version, the library's convolution
+     alone as ``library_ms``) and a UNet (K5, the module path in float32 and
+     in TF32) beside the 3xTF32 bound (3 x FLOPs at 495 TFLOP/s) and the
+     float32 SIMT bound (FLOPs at 67 TFLOP/s).
 
 Every phase's line carries ``t_s``, the script's seconds so far.
 
@@ -1262,10 +1280,13 @@ def kernel_counters():
     from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
     from mvkpconv_tpu_torch.ops.kernels import segsum as k3
 
+    from mvkpconv_tpu_torch.ops.kernels import unet_conv as k5
+
     return {"radius_topk": k1.radius_topk, "pixel_topk": k2.pixel_topk, "segsum": k3.segsum,
             "segsum_plan": k3.segsum_plan,
             "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
-            "kpconv_wf": k4.kpconv_wf, "farthest_point_sample": p1.farthest_point_sample}
+            "kpconv_wf": k4.kpconv_wf, "farthest_point_sample": p1.farthest_point_sample,
+            "unet_conv": k5.unet_conv}
 
 
 def reset_launches():
@@ -2248,7 +2269,9 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     ``test_mvpnet`` (the sliding chunks, stride 0.5, over one scene),
     ``train_mvpnet --no-images`` (the PN2 baseline) and ``precompute_2d``
     from the 2D run (one scene, 4,096-point chunks). Launches held to the
-    plan: a step of MVPNet K2 once and K3 8 times, each sum with a plan of
+    plan: none in ``train_2d``'s steps and validation (the UNet trains on
+    the module path, and at PyTorch's TF32 default its frozen validation
+    stays there); a step of MVPNet K2 once and K3 8 times, each sum with a plan of
     its own (SA0–SA3 feature gathers, FP0–FP3 interpolation gathers; the
     xyz gathers take no gradient), 7 for the baseline (SA0 gathers the
     input colors); K2 once a forward elsewhere, once a chunk in the
@@ -2985,25 +3008,17 @@ def remat_two_steps(cfg, dev, batch):
     return {"losses": losses, "state": state}
 
 
-def check_resume_jax_run(dev, small, tmp):
-    """A JAX-layout run directory (``training/jax_checkpoint.py``
-    ``write_jax_checkpoint``: the flax ``TrainState`` bytes of 2 CPU steps of
-    ``small``'s configuration, the UNet frozen, 'banded', lr decay 0.5 at
-    ``epoch_steps=2``) resumed by ``Trainer.maybe_resume`` on the card and on
-    the CPU, then one step each, f32, TF32 off: the restored momentum equal
-    bit for bit to what was written, the step's loss within 1e-5 relative,
-    every parameter and momentum buffer within the train-step allowance,
-    the learning rate (the decayed one) and the schedule's count equal, the
-    card's launches held to the plan."""
+def resume_jax_run_dir(cfg, tmp):
+    """A JAX-layout run directory under ``tmp``: the flax ``TrainState``
+    bytes (``training/jax_checkpoint.py`` ``write_jax_checkpoint``) of 2 CPU
+    steps of ``cfg`` seeded 1, and its ``last_checkpoint`` tag. Returns the
+    run directory, the file, the batch and the momentum buffers written."""
     import numpy as np
-    import torch
     from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
     from mvkpconv_tpu_torch.infer import batch_to_device
     from mvkpconv_tpu_torch.train import make_trainer
     from mvkpconv_tpu_torch.training.jax_checkpoint import write_jax_checkpoint
-    from mvkpconv_tpu_torch.training.trainer import Trainer
 
-    cfg = small.replace(gather_transpose="banded", epoch_steps=2, lr_decay=0.5)
     tb = make_batch(cfg, 2, np.random.RandomState(1))
     src = make_trainer(cfg, "cpu", seed=1)
     for _ in range(2):
@@ -3013,35 +3028,92 @@ def check_resume_jax_run(dev, small, tmp):
     (ck / "last_checkpoint").write_text(path.name)
     written = {n: src.optimizer.state[p]["momentum_buffer"] for n, p in src.model.named_parameters()
                if p in src.optimizer.state}
-    sides = {}
-    for name, device, seed in (("cpu", "cpu", 3), ("card", dev, 4)):
-        setup = make_trainer(cfg, device, seed=seed)
-        trainer = Trainer(setup.step, setup.model, setup.optimizer, str(tmp / "jax_run"), cfg)
-        trainer.maybe_resume()
-        params = dict(setup.model.named_parameters())
-        restored = {n: setup.optimizer.state[params[n]]["momentum_buffer"] for n in written}
-        assert trainer.step == 2 and all(torch.equal(restored[n].cpu(), b) for n, b in written.items()), name
-        reset_launches()
-        loss = float(trainer.train_step(batch_to_device(tb, device))["loss"])
-        sides[name] = (trainer, loss, read_launches())
-    (cpu, want_loss, _), (card, got_loss, launches) = sides["cpu"], sides["card"]
+    return tmp / "jax_run", path, tb, written
 
-    def state(tr):
-        params = dict(tr.model.named_parameters())
-        bufs = {f"momentum:{n}": tr.optimizer.state[params[n]]["momentum_buffer"] for n in written}
-        return {**{n: p.detach() for n, p in params.items()}, **bufs}
 
-    over = allowance_over(state(card), state(cpu))
-    worst = max(over, key=over.get)
+def resumed_step(cfg, run, tb, written, device, seed, feed=None):
+    """``run`` resumed by ``Trainer.maybe_resume`` into a trainer of ``cfg``
+    seeded ``seed`` on ``device``, then one step. The restored momentum must
+    equal ``written`` bit for bit. ``feed`` (the frozen UNet's outputs, on
+    the host) replaces the UNet's forward. Returns the trainer, the loss, the
+    UNet's outputs of the step (on the host) and the step's launches."""
+    import torch
+    from mvkpconv_tpu_torch.infer import batch_to_device
+    from mvkpconv_tpu_torch.train import make_trainer
+    from mvkpconv_tpu_torch.training.trainer import Trainer
+
+    setup = make_trainer(cfg, device, seed=seed)
+    trainer = Trainer(setup.step, setup.model, setup.optimizer, str(run), cfg)
+    trainer.maybe_resume()
+    params = dict(setup.model.named_parameters())
+    restored = {n: setup.optimizer.state[params[n]]["momentum_buffer"] for n in written}
+    assert trainer.step == 2 and all(torch.equal(restored[n].cpu(), b) for n, b in written.items()), device
+    net = trainer.model.net_2d
+    if feed is not None:
+        net.forward = lambda image: {k: v.to(image.device) for k, v in feed.items()}
+    unet = {}
+    hook = net.register_forward_hook(lambda m, a, out: unet.update({k: v.detach().cpu() for k, v in out.items()}))
+    reset_launches()
+    loss = float(trainer.train_step(batch_to_device(tb, device))["loss"])
+    hook.remove()
+    return trainer, loss, unet, read_launches()
+
+
+def resumed_state(trainer, written):
+    """Parameters and momentum buffers of a resumed trainer."""
+    params = dict(trainer.model.named_parameters())
+    bufs = {f"momentum:{n}": trainer.optimizer.state[params[n]]["momentum_buffer"] for n in written}
+    return {**{n: p.detach() for n, p in params.items()}, **bufs}
+
+
+def rel_frobenius(got, want):
+    import torch
+
+    return float(torch.linalg.vector_norm(got.double() - want.double()) / torch.linalg.vector_norm(want.double()))
+
+
+def check_resume_jax_run(dev, small, tmp):
+    """A JAX-layout run directory (:func:`resume_jax_run_dir`: 2 CPU steps of
+    ``small``'s configuration, the UNet frozen, 'banded', lr decay 0.5 at
+    ``epoch_steps=2``) resumed by ``Trainer.maybe_resume`` on the card and on
+    the CPU, then one step each, f32, TF32 off: the restored momentum equal
+    bit for bit to what was written; the card's frozen UNet (K5) within
+    ``UNET_CONV_REL`` of the CPU's outputs; the CPU's step fed the card's
+    UNet outputs against the card's step: the loss within 1e-5 relative,
+    every parameter and momentum buffer within the train-step allowance;
+    the learning rate (the decayed one) and the schedule's count equal, the
+    card's launches held to the plan.
+
+    The step is fed the same 2D features on both sides because its backward
+    is not continuous in them at this configuration: on the CPU alone, a
+    relative change of 1e-7 in the UNet's outputs moves the gradient that
+    reaches the lift's output by 2% (the logits' gradient by 8e-7) and the
+    resumed state by ~150x the allowance in 3 draws of 4. The CPU's step on
+    its own UNet is reported beside it (``err_over_allowance_own_unet``)."""
+    import numpy as np
+
+    cfg = small.replace(gather_transpose="banded", epoch_steps=2, lr_decay=0.5)
+    run, path, tb, written = resume_jax_run_dir(cfg, tmp)
+    card, got_loss, card_unet, launches = resumed_step(cfg, run, tb, written, dev, 4)
+    cpu, own_loss, cpu_unet, _ = resumed_step(cfg, run, tb, written, "cpu", 3)
+    fed, want_loss, _, _ = resumed_step(cfg, run, tb, written, "cpu", 3, feed=card_unet)
+    unet_err = {k: rel_frobenius(card_unet[k], cpu_unet[k]) for k in cpu_unet}
+    over = allowance_over(resumed_state(card, written), resumed_state(fed, written))
+    own = allowance_over(resumed_state(card, written), resumed_state(cpu, written))
+    worst, worst_own = max(over, key=over.get), max(own, key=own.get)
     loss_rel = abs(got_loss - want_loss) / abs(want_loss)
-    lrs = [[g["lr"] for g in tr.optimizer.param_groups] for tr in (card, cpu)]
-    counts = [[g["count"] for g in tr.optimizer.param_groups] for tr in (card, cpu)]
+    lrs = [[g["lr"] for g in tr.optimizer.param_groups] for tr in (card, fed)]
+    counts = [[g["count"] for g in tr.optimizer.param_groups] for tr in (card, fed)]
     emit({"phase": "resume_jax_run", "config": "ARCHITECTURE_DEEPER, N0=1024, width 32, 3 views 24x32, "
           "f32, banded, UNet frozen, lr_decay 0.5 at epoch_steps 2", "file": path.name,
           "file_bytes": path.stat().st_size, "momentum_buffers": len(written), "step_after": card.step + 1,
+          "unet_rel_err": unet_err, "unet_limit": UNET_CONV_REL,
           "loss_card": got_loss, "loss_cpu": want_loss, "loss_rel_err": loss_rel, "lr": lrs[0],
           "count": counts[0], "err_over_allowance": over[worst], "worst": worst,
-          "outside": sum(r > 1.0 for r in over.values()), "tensors": len(over), "launches": launches})
+          "outside": sum(r > 1.0 for r in over.values()), "tensors": len(over),
+          "loss_cpu_own_unet": own_loss, "err_over_allowance_own_unet": own[worst_own], "worst_own_unet": worst_own,
+          "outside_own_unet": sum(r > 1.0 for r in own.values()), "launches": launches})
+    assert max(unet_err.values()) <= UNET_CONV_REL, unet_err
     assert np.isfinite(got_loss) and loss_rel <= TRAIN_LOSS_REL, "card/CPU resumed step losses disagree"
     assert over[worst] <= 1.0, "card/CPU resumed states disagree"
     assert lrs[0] == lrs[1] == [cfg.learning_rate * 0.5] and counts[0] == counts[1] == [3], (lrs, counts)
@@ -3487,12 +3559,174 @@ def check_tracing(dev, smi, reps=10, profiled=5):
         assert rows_got == want_rows, (rows_got, want_rows)
         assert launches.get("radius_topk") == 13 and launches.get("radius_topk_device") == 26, launches
         assert launches.get("pixel_topk") == 1, launches
+        assert launches.get("unet_conv") == 52, launches  # the frozen UNet: 45 sites, 7 of them split in K
         assert 0 < device_ms["lift.unet"] <= device_ms["lift"] <= device_ms["model"], device_ms
         assert abs(idle - (split["window_ms"] - split["busy_ms"])) <= 1e-6 * split["window_ms"], split
         assert n == profiled, split["steps"]
         assert row["syncs_outside_sync_spans"] == 0, syncs
         rows[fusion] = row
     return rows
+
+
+UNET_CONV_REL = 1e-5  # relative Frobenius error of K5 against cuDNN float32 (TF32 off)
+TF32_FLOP_PER_S = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
+
+
+def calibrated_unet(dev, images, seed=0):
+    """A UNet-ResNet34 of seeded weights whose eval BNs hold the statistics
+    of ``images`` (one train-mode forward with the running statistics
+    replaced, not averaged), so that every layer's activations are of order 1."""
+    import torch
+    from mvkpconv_tpu_torch.models import norm
+    from mvkpconv_tpu_torch.models.unet2d import UNetResNet34
+
+    torch.manual_seed(seed)
+    net = UNetResNet34(num_classes=20).to(dev)
+    for p in net.parameters():
+        p.requires_grad_(False)
+    saved, norm.MOMENTUM = norm.MOMENTUM, 0.0
+    try:
+        with torch.no_grad():
+            net.train()(images)
+    finally:
+        norm.MOMENTUM = saved
+    return net.eval()
+
+
+def check_unet_conv(dev, smi, reps=20, shape=(25, 120, 160)):
+    """Phase 33 (the module's docstring): K5 at the cells' UNet, 25 images of 120x160."""
+    import torch
+    import torch.nn.functional as F
+    from mvkpconv_tpu_torch.models.unet2d import UNetResNet34, _site
+    from mvkpconv_tpu_torch.ops.kernels import unet_conv as k5
+
+    def rel(got, want):
+        return float(torch.linalg.vector_norm(got.double() - want.double()) / torch.linalg.vector_norm(want.double()))
+
+    def site64(conv, bn, x, *, relu=True, skip=None, residual=None, out_size=None):
+        """A site in float64: the plain version on doubles."""
+        transposed = isinstance(conv, torch.nn.ConvTranspose2d)
+        oh, ow = out_size or k5.natural_size(x, conv.weight, conv.stride[0], conv.padding[0], transposed)
+        vec = (None,) * 4 if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        d = [None if t is None else t.double() for t in (x, skip, conv.weight, conv.bias, *vec, residual)]
+        return k5.unet_conv_plain(*d, conv.stride[0], conv.padding[0], oh, ow, transposed, relu,
+                                  1e-5 if bn is None else bn.epsilon)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    images = torch.rand(*shape, 3, device=dev, generator=gen)
+    net = calibrated_unet(dev, images)
+    assert not torch.backends.cudnn.allow_tf32
+
+    # every site of one forward: its inputs, as the fused path hands them
+    sites = []
+    real_site = _site
+
+    def recording(conv, bn, x, **kw):
+        out = real_site(conv, bn, x, **kw)
+        sites.append((conv, bn, x, {"relu": True, **kw}, out))
+        return out
+
+    import mvkpconv_tpu_torch.models.unet2d as unet2d
+    unet2d._site = recording
+    try:
+        with torch.no_grad():
+            net(images)
+    finally:
+        unet2d._site = real_site
+    names = {id(m): n for n, m in net.named_modules()}
+    rows, bad = [], []
+    for conv, bn, x, kw, out in sites:
+        transposed = isinstance(conv, torch.nn.ConvTranspose2d)
+        args = dict(bias=conv.bias, bn=bn, stride=conv.stride[0], padding=conv.padding[0], transposed=transposed,
+                    **kw)
+        b, h, w, cin = x.shape
+        c2 = 0 if kw.get("skip") is None else kw["skip"].shape[3]
+        oh, ow, cout = out.shape[1:]
+        if transposed:
+            flops = 2 * b * h * w * cin * cout * 4
+        else:
+            flops = 2 * b * oh * ow * cout * (cin + c2) * conv.weight.shape[2] * conv.weight.shape[3]
+        ins = [x, conv.weight] + [t for t in (kw.get("skip"), kw.get("residual")) if t is not None]
+        nbytes_ = nbytes(*ins, out)
+        vec = (None,) * 4 if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+        def plain():
+            return k5.unet_conv_plain(x, kw.get("skip"), conv.weight, conv.bias, *vec, kw.get("residual"),
+                                      conv.stride[0], conv.padding[0], oh, ow, transposed, kw["relu"],
+                                      1e-5 if bn is None else bn.epsilon)
+
+        def kernel():
+            return k5.unet_conv(x, conv.weight, **args)
+
+        with torch.no_grad():
+            want, got = plain(), kernel()
+            again = kernel()
+            want64 = site64(conv, bn, x, **kw)
+            # the library's own convolution alone, NCHW in channels-last memory as the module path runs it
+            xs = x.permute(0, 3, 1, 2)
+            if kw.get("skip") is not None:
+                xs = torch.cat([xs, kw["skip"].permute(0, 3, 1, 2)], dim=1)
+            if transposed:
+                lib = lambda: F.conv_transpose2d(xs, conv.weight, conv.bias, stride=2)  # noqa: E731
+            else:
+                lib = lambda: F.conv2d(xs, conv.weight, conv.bias, conv.stride, conv.padding)  # noqa: E731
+            row = {"site": names[id(conv)], "b": b, "in": [h, w, cin, c2], "out": [oh, ow, cout],
+                   "k": list(conv.weight.shape[2:]), "stride": conv.stride[0], "transposed": transposed,
+                   "residual": kw.get("residual") is not None, "gflop": flops / 1e9, "rel_err": rel(got, want),
+                   "rel_err_f64": rel(got, want64), "library_rel_err_f64": rel(want, want64),
+                   "repeat_equal": bool(torch.equal(got, again)),
+                   "ms": cuda_ms(kernel, reps), "plain_ms": cuda_ms(plain, reps), "library_ms": cuda_ms(lib, reps),
+                   "bound_3xtf32_ms": 3 * flops / TF32_FLOP_PER_S * 1e3, "bound_f32_ms": flops / F32_FLOP_PER_S * 1e3,
+                   "bytes_ms": nbytes_ / HBM_BYTES_PER_S * 1e3}
+        row["tflops"] = flops / row["ms"] / 1e9
+        rows.append(row)
+        emit({"phase": "unet_conv_site", **row})
+        if not (row["rel_err"] <= UNET_CONV_REL and row["repeat_equal"]):
+            bad.append(row["site"])
+
+    # the whole UNet: K5 against cuDNN float32 (TF32 off), and the control
+    with torch.no_grad():
+        before = (UNetResNet34.fused_calls, UNetResNet34.module_calls, k5.unet_conv.launches)
+        fused = net(images)
+        launches = k5.unet_conv.launches - before[2]
+        assert (UNetResNet34.fused_calls - before[0], UNetResNet34.module_calls - before[1]) == (1, 0)
+        want = net._forward_modules(images)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = net._forward_modules(images)
+            tf32_ms = cuda_ms(lambda: net._forward_modules(images), 5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        unet2d._site = site64
+        try:
+            want64 = net._forward_fused(images.double())
+        finally:
+            unet2d._site = real_site
+        keys = ("feature", "seg_logit")
+        errs = {k: rel(fused[k], want[k]) for k in keys}
+        control = {k: rel(tf32[k], want[k]) for k in keys}
+        f64 = {"k5": {k: rel(fused[k], want64[k]) for k in keys}, "library": {k: rel(want[k], want64[k]) for k in keys},
+               "tf32": {k: rel(tf32[k], want64[k]) for k in keys}}
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            net(images)
+            torch.cuda.synchronize()
+        device_kernels = sum(e.count for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+        flops = sum(r["gflop"] for r in rows) * 1e9
+        row = {"phase": "unet_conv_unet", "images": list(images.shape), "launches_k5": launches,
+               "device_ops_a_call": device_kernels, "rel_err": errs, "rel_err_tf32_control": control,
+               "rel_err_f64": f64, "limit": UNET_CONV_REL, "feature_contiguous": bool(fused["feature"].is_contiguous()),
+               "ms": cuda_ms(lambda: net(images), reps), "module_ms": cuda_ms(lambda: net._forward_modules(images), 5),
+               "module_tf32_ms": tf32_ms, "sites_ms": sum(r["ms"] for r in rows), "gflop": flops / 1e9,
+               "bound_3xtf32_ms": 3 * flops / TF32_FLOP_PER_S * 1e3, "bound_f32_ms": flops / F32_FLOP_PER_S * 1e3,
+               "card": smi}
+    emit(row)
+    assert not bad, f"K5 beyond the limit at {bad}"
+    assert max(errs.values()) <= UNET_CONV_REL, errs
+    assert min(control.values()) > UNET_CONV_REL, control
+    assert row["feature_contiguous"] and launches <= 60, row
+    return rows, row
 
 
 def check_ddp(dev, raw, smi, steps=5):
@@ -3810,6 +4044,8 @@ def main() -> int:
     ddp_paths = check_ddp(dev, raw, smi)
     # ---- the program's tracer: synchronising calls, its cost, its records
     check_tracing(dev, smi)
+    # ---- K5: the frozen UNet's fused convolution sites
+    k5_rows, k5_unet = check_unet_conv(dev, smi)
     by_path = {"full": launches, "train_full": train_launches, "full_fused": fused_launches,
                "train_full_fused": fused_train_launches, **fusion_paths, **other_paths, **remat_paths, **entry_paths,
                **mvpnet_paths, **mvpnet_parity, **custom_paths, **serving_paths, **ddp_paths}
@@ -3914,6 +4150,19 @@ def main() -> int:
          "levels": [{x: r[x] for x in ("phase", "b", "n", "s", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "serial_steps", "us_per_step", "device_ms", "device_us_per_step")}
                     for r in p1_rows[:len(PN2_LEVELS)]]},
+        {"name": "unet_conv", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/unet_conv.cu",
+         "replaces": "none: the JAX UNet (mvkpconv_tpu/models/unet2d.py) is flax nn.Conv on XLA; added because the "
+                     "port's float32 UNet ran cuDNN's FFT GEMM in 2,666 launches a call",
+         "launches": k5_unet["launches_k5"], "launches_by_path": path_launches("unet_conv"),
+         "max_rel_err": max(r["rel_err"] for r in k5_rows), "unet_rel_err": k5_unet["rel_err"],
+         "unet_rel_err_tf32_control": k5_unet["rel_err_tf32_control"],
+         "timing": "CUDA events; ms of the whole UNet (25 x 120 x 160)",
+         "ms": k5_unet["ms"], "plain_ms": k5_unet["module_ms"], "library_ms": k5_unet["module_ms"],
+         "library_of": "the module path: cuDNN float32, TF32 off",
+         "bound_ms": k5_unet["bound_3xtf32_ms"], "bound_by": "operations, 3 x TF32 at 495 TFLOP/s",
+         "bound_f32_simt_ms": k5_unet["bound_f32_ms"],
+         "sites": [{x: r[x] for x in ("site", "ms", "plain_ms", "library_ms", "bound_3xtf32_ms", "bound_f32_ms",
+                                      "rel_err")} for r in k5_rows]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,9 +7,10 @@ inference step (the pyramid, the UNet over the views, the 2D→3D lift, the
 KPConv trunk, the softmax) with the weights inside it. The hand-written
 kernels stay in it as the ``torch.library`` operators
 ``mvkpconv::radius_topk`` (K1), ``mvkpconv::pixel_topk`` (K2),
-``mvkpconv::kpconv_fused_fwd`` (K4's forward) and
+``mvkpconv::kpconv_fused_fwd`` (K4's forward),
 ``mvkpconv::farthest_point_sample`` (P1, MVPNet's and PointNet++'s FPS: the
-loop stays one operator instead of one copy a centroid), so the artifact
+loop stays one operator instead of one copy a centroid) and
+``mvkpconv::unet_conv`` (K5, one a site of the frozen float32 UNet), so the artifact
 launches the kernels on the card and runs their plain versions on the CPU.
 The loader, :class:`ServingModel`, imports those operators' modules and no
 model code.
@@ -42,6 +43,7 @@ from mvkpconv_tpu_torch.ops.kernels import fps as _p1  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import kpconv as _k4  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import pixel_select as _k2  # noqa: F401
 from mvkpconv_tpu_torch.ops.kernels import radius_topk as _k1  # noqa: F401
+from mvkpconv_tpu_torch.ops.kernels import unet_conv as _k5  # noqa: F401
 
 META_FILE = "mvkpconv_serving.json"
 SHADOW_COORD = 1.0e6  # ops/common.py

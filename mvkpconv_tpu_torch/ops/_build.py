@@ -57,6 +57,10 @@ SIGNATURES = {
     # points, mask (or NULL), out, scratch (NULL unless the plan's k is 0), B, N, S,
     # the plan's clusters, threads and k (ops/kernels/fps.py plan), stream
     "mvkp_fps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # x, x2, w, bias, bn weight, bias, mean, var, residual, out (NULL where absent),
+    # B, H, W, C1, C2, OH, OW, Cout, KH, KW, stride, pad, transposed, relu, eps,
+    # partial (NULL unless splits > 1), splits, stream
+    "mvkp_unet_conv": (_P,) * 10 + (_I,) * 14 + (_F, _P, _I, _I, _P),
     # out[6], out[7], out[4], out[6] on the host; only in a build with MVKP_CYCLES
     "mvkp_kpconv_fwd_cycles": (_P,),
     "mvkp_kpconv_bwd_x_cycles": (_P,),

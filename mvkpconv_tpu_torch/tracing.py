@@ -119,7 +119,7 @@ _COUNTERS = None
 def _counters():
     global _COUNTERS
     if _COUNTERS is None:
-        from mvkpconv_tpu_torch.ops.kernels import fps, kpconv, pixel_select, radius_topk, segsum
+        from mvkpconv_tpu_torch.ops.kernels import fps, kpconv, pixel_select, radius_topk, segsum, unet_conv
 
         _COUNTERS = (
             ("radius_topk", radius_topk.radius_topk, "launches"),
@@ -131,6 +131,7 @@ def _counters():
             ("kpconv_fused_bwd_x", kpconv.kpconv_fused_bwd_x, "launches"),
             ("kpconv_wf", kpconv.kpconv_wf, "launches"),
             ("farthest_point_sample", fps.farthest_point_sample, "launches"),
+            ("unet_conv", unet_conv.unet_conv, "launches"),
         )
     return _COUNTERS
 

@@ -7,7 +7,8 @@
     (late fusion's head takes the decoder's output ⊕ the lifted features,
     which the program carries past the trunk); the program calls
     K1 and K2 as the operators ``mvkpconv::radius_topk`` (one a selection of
-    the pyramid) and ``mvkpconv::pixel_topk``, and on the fused path K4's
+    the pyramid) and ``mvkpconv::pixel_topk``, the frozen UNet's convolutions
+    as ``mvkpconv::unet_conv`` (K5, one a site), and on the fused path K4's
     forward as ``mvkpconv::kpconv_fused_fwd`` (one a conv block):
     nothing of them is decomposed into the plain versions' ops.
   * Against the JAX package's export of the same weights
@@ -31,6 +32,9 @@
     whole-scene export of an MVPNet raising (the sweep is KPConv-only, as in
     the JAX package; ``test_torch_fps_export.py`` holds the MVPNet batch
     export); the CLI with ``--selftest``.
+
+Every test runs with ``torch.backends.cudnn.allow_tf32`` False, the
+precision the benchmark serves at, under which the frozen UNet takes K5.
 """
 
 import functools
@@ -70,6 +74,7 @@ TINY = dict(
     conv_neighbors=(12, 12), pool_neighbors=(12,), num_views=2, image_height=24,
     image_width=32, batch_num=1,
 )
+UNET_SITES = 45  # the frozen UNet's convolution sites, one mvkpconv::unet_conv (K5) each
 FUSION = {"none": dict(fusion="none", in_features_dim=2, feature_2d_dim=0),
           **{f: dict(fusion=f, in_features_dim=66, feature_2d_dim=64, pixel_patch_dtype="float32")
              for f in ("early", "middle", "late")}}
@@ -94,6 +99,11 @@ def make_inputs(cfg, kind, seed=0):
             batch[k] = rng.rand(*s.shape).astype(np.float32)
     batch["points"] = np.where(batch["mask"][..., None], batch["points"], np.float32(1e6))
     return batch
+
+
+@pytest.fixture(autouse=True)
+def tf32_off(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
 
 
 def targets(program):
@@ -144,6 +154,7 @@ def test_exported_program_equals_the_eager_model(fusion, fused, tmp_path):
     calls = targets(served.program)
     assert calls.count("mvkpconv.radius_topk.default") == 3 * cfg.num_layers - 2
     assert calls.count("mvkpconv.pixel_topk.default") == (kind == "mvkpconv")
+    assert calls.count("mvkpconv.unet_conv.default") == (UNET_SITES if kind == "mvkpconv" else 0)
     n_conv = sum(b.startswith(("simple", "resnetb")) for b in cfg.architecture)
     assert calls.count("mvkpconv.kpconv_fused_fwd.default") == (n_conv if fused else 0)
     assert not any("topk" in c and "mvkpconv" not in c for c in calls)  # no plain K1/K2 inside
@@ -163,7 +174,8 @@ def test_export_meets_the_logits_contract_against_the_jax_export(fusion):
     batch = {k: torch.from_numpy(v) for k, v in inputs.items()}
     served = E.ServingModel.from_bytes(data)
     assert [c for c in targets(served.program) if c.startswith("mvkpconv")] == [
-        "mvkpconv.radius_topk.default"] * 4 + ["mvkpconv.pixel_topk.default"] * (kind == "mvkpconv")
+        "mvkpconv.radius_topk.default"] * 4 + ["mvkpconv.pixel_topk.default"] * (kind == "mvkpconv") + [
+        "mvkpconv.unet_conv.default"] * (UNET_SITES if kind == "mvkpconv" else 0)
     got = served(batch).numpy()
     logits = infer(model, batch).numpy()
     eager = torch.softmax(torch.from_numpy(logits), dim=-1).numpy()

@@ -198,7 +198,8 @@ def mvpnet_batch(cfg):
     return batch
 
 
-def test_mvpnet_export_round_trip_matches_jax(tmp_path):
+def test_mvpnet_export_round_trip_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # float32: the frozen UNet on K5
     cfg, jcfg = KPConfig(**TINY), JaxConfig(**TINY)
     batch = mvpnet_batch(cfg)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -215,7 +216,8 @@ def test_mvpnet_export_round_trip_matches_jax(tmp_path):
     assert served.kind == "mvpnet" and sorted(served.input_spec) == sorted(batch)
     calls = [str(n.target) for n in served.program.graph.nodes
              if n.op == "call_function" and str(n.target).startswith("mvkpconv.")]
-    assert sorted(calls) == ["mvkpconv.farthest_point_sample.default"] * 4 + ["mvkpconv.pixel_topk.default"]
+    assert sorted(calls) == ["mvkpconv.farthest_point_sample.default"] * 4 + ["mvkpconv.pixel_topk.default"] + [
+        "mvkpconv.unet_conv.default"] * 45  # the frozen UNet, one K5 a convolution site
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     got = served(tb).numpy()
     assert got.shape == (1, cfg.num_points[0], cfg.num_classes)
