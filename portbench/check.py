@@ -1,6 +1,7 @@
 """The comparisons that decide ``correct``: what the timed path produced,
-against the reference (``portbench/reference``) run after the window in
-float32 with TF32 off, on the same weights and batches, at the same sizes.
+against the reference that the model dict names (``references.of``; for
+MV-KPConv ``portbench/reference``) run after the window in float32 with
+TF32 off, on the same weights and batches, at the same sizes.
 
 Inference (the loop ``closed_infer``): a sample of the window's batches
 drawn from the seed (and the fullest it finished) — every real point's probabilities as they reached
@@ -19,7 +20,7 @@ from typing import Dict, List
 
 import torch
 
-from portbench.reference.model import Reference, float32_exact
+from portbench.references import of
 
 LIMITS = Path(__file__).resolve().parent / "limits"
 
@@ -44,10 +45,9 @@ def compare_infer(model: Dict, weights, batches: List[Dict[str, torch.Tensor]],
                   outputs: List[torch.Tensor]) -> Dict[str, float]:
     """``outputs[i]``: the program's (B, N0, C) probabilities of
     ``batches[i]`` (device tensors)."""
-    worst = 0.0
+    reference, worst = of(model), 0.0
     for batch, probs in zip(batches, outputs):
-        with torch.no_grad(), float32_exact():
-            logits, _, lengths = Reference(model, weights, "eval")(batch)
+        logits, lengths = reference.logits(model, weights, batch)
         ref = centred_log(torch.softmax(logits, dim=-1))
         got = centred_log(torch.cat([probs[i, :n].to(ref.device) for i, n in enumerate(lengths)]))
         worst = max(worst, float((got - ref).norm() / ref.norm()))

@@ -88,13 +88,10 @@ def unet_flops(h: int, w: int, num_classes: int) -> int:
 
 
 def _conv_sites(model: Dict):
-    """(prefix, block, in, out, level) of every block of the trunk, and the
-    encoders fed the batch's own features (no gradient into their input)."""
+    """(prefix, block, in, out, level) of every block of the trunk."""
     encoders, dec, _ = trunk(model)
     rows = [(name, blk, cin, cout, lv) for name, enc in encoders.items() for blk, cin, cout, _r, lv in enc]
-    rows += [("decoder", blk, cin, cout, lv) for blk, cin, cout, _r, lv, _c in dec]
-    raw = {"none": {"encoder"}, "early": set(), "middle": {"encoder_3d"}}[model["fusion"]]
-    return rows, raw
+    return rows + [("decoder", blk, cin, cout, lv) for blk, cin, cout, _r, lv, _c in dec]
 
 
 def forward_flops(model: Dict, stats: List[LevelStats]) -> Dict[str, float]:
@@ -102,8 +99,7 @@ def forward_flops(model: Dict, stats: List[LevelStats]) -> Dict[str, float]:
     one forward of the batch."""
     m = model["num_kernel_points"]
     trained = 0.0
-    rows, _ = _conv_sites(model)
-    for _name, blk, cin, cout, lv in rows:
+    for _name, blk, cin, cout, lv in _conv_sites(model):
         q = stats[lv + 1].points if "strided" in blk else stats[lv].points
         pairs = stats[lv].pool_pairs if "strided" in blk else stats[lv].conv_pairs
         if blk == "unary":

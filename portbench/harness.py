@@ -9,7 +9,28 @@ new entry: the cell in ``BENCHMARK.json``; its configuration's file
 (``traffic/<generator>.py``) and whose ``loop`` the module that drives the
 program (``loops/<loop>.py``); its limits (``limits/<cell>.json``); each of
 its metrics (``metrics/<metric>.py``, a ``read(run)`` that returns the
-number or None).
+number or None); and the reference the check holds the program to, the
+module that the configuration's file names under ``reference``.
+
+A reference module lives under ``portbench.``, imports only ``torch`` and
+``numpy`` (nothing of ``jax``, ``mvkpconv_tpu`` or ``mvkpconv_tpu_torch``)
+and provides:
+
+  * ``tensors(model) -> [(name, shape, kind)]``: every weight and
+    statistic, named as the port's ``state_dict``, of the kinds that
+    ``weights.draw`` knows (conv, deconv, linear, kpconv, bias, bn_weight,
+    running_mean, running_var);
+  * ``calibrate(model, weights, batch)``: every batch norm's running
+    statistics set in place from the batch;
+  * ``logits(model, weights, batch) -> (logits, lengths)``: the real
+    points' logits stacked (P, C), eval mode, float32 with TF32 off;
+  * ``peak_seconds(model, batch, train, tf32) -> float``: the least time of
+    one step at the published peaks, from what the batch's geometry needs
+    (``tf32``: the switches ``{"matmul": bool, "cudnn": bool}`` in force).
+
+``Cell.model`` carries the module's name, so each of these is reached
+through the model dict (``references.of``) by the weights, the check and
+the counts, and by a loop's ``check_run``.
 
 A loop module provides:
 
@@ -42,13 +63,14 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from portbench import check, counting, trace
+from portbench import check, references, trace
 from portbench.traffic.generator import load_mix, load_module, make_pool, seeds
 from portbench.weights import calibrate, draw
 
@@ -81,6 +103,7 @@ class Cell:
     def __init__(self, name: str, conf: Dict, mix: Dict, limits: Optional[Dict[str, float]] = None,
                  end_to_end=(), per_layer=(), chips: int = 1):
         self.name, self.conf, self.mix, self.chips = name, conf, mix, chips
+        self.reference = references.load(conf.get("reference"))
         self.limits = dict(limits or {})
         self.end_to_end, self.per_layer = list(end_to_end), list(per_layer)
 
@@ -103,7 +126,8 @@ class Cell:
 
     @property
     def model(self) -> Dict:
-        return self.conf["model"]
+        """The configuration's model dict, with the name of its reference."""
+        return {**self.conf["model"], "reference": self.conf["reference"]}
 
     @property
     def loop(self):
@@ -213,11 +237,14 @@ def _run_cell(cell, seed, seconds, traced, device, t0, program_hook, overrides) 
         if traced:
             rec["spans"] = trace.step_spans(spans)
             spans.clear()
-            # one call on each batch of the pool: the same work in every run
+            # one call on each batch of the pool, for the profile and again
+            # for the program's spans: the same work in every run
             n = len(pool.batches)
             profiled = [(len(rec["order"]) + k) % n for k in range(n)]
             rec["profile"] = _profile(prog, pool, profiled, spans, device)
     prog.spans = None
+    if traced:
+        rec["program"] = program_spans(prog, pool, profiled, device)
     order = rec["order"]
     rec.update(steps=len(order), points=int(sum(pool.real_points[j] for j in order)))
     del prog
@@ -246,13 +273,47 @@ def _profile(prog: Program, pool, indices: List[int], spans, device) -> Dict:
     return trace.profile_summary(prof)
 
 
+def program_spans(prog: Program, pool, indices: List[int], device) -> Dict:
+    """The program's own spans and counters (``mvkpconv_tpu_torch.tracing``)
+    over one call on each of ``indices``, the tracer on only for them. Per
+    span name, one value for each step (an outermost call of the program's,
+    which shares its step id with every span inside it) in which it ran,
+    summed over its records there: ``span_ms``, device ms by the tracer's
+    CUDA events (none without a card); ``host_ms``; ``launches``, {kernel
+    counter: launches}; ``counters``, for a span that counts query rows
+    (K1's ``pyramid.neighbors``), ``rows`` and ``real_rows``."""
+    from mvkpconv_tpu_torch import tracing
+
+    tracing.enable()
+    try:
+        for j in indices:
+            prog.call(pool.batches[j])
+        sync(device)
+        records = tracing.export()
+    finally:
+        tracing.disable()
+    steps: Dict[str, Dict[int, List[dict]]] = {}
+    for r in records:
+        steps.setdefault(r["name"], {}).setdefault(r["step"], []).append(r)
+    out: Dict[str, Dict] = {"span_ms": {}, "host_ms": {}, "launches": {}, "counters": {}}
+    for name, by_step in steps.items():
+        groups = [by_step[k] for k in sorted(by_step)]
+        if all(r["device_ms"] is not None for g in groups for r in g):
+            out["span_ms"][name] = [sum(r["device_ms"] for r in g) for g in groups]
+        out["host_ms"][name] = [sum(r["t1_ns"] - r["t0_ns"] for r in g) / 1e6 for g in groups]
+        out["launches"][name] = [dict(sum((Counter(r["launches"]) for r in g), Counter())) for g in groups]
+        if any("rows" in r for g in groups for r in g):
+            out["counters"][name] = {k: [sum(r.get(k, 0) for r in g) for g in groups] for k in ("rows", "real_rows")}
+    return out
+
+
 def _counts(model: Dict, pool, order: List[int], trains: bool, device) -> Dict:
     """Seconds the window's steps would take at the published peaks of the
     precision each class of operations runs at (the TF32 switches in force),
-    from what each batch's geometry needs."""
+    from what each batch's geometry needs, by the model's reference."""
+    reference = references.of(model)
     tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32, "cudnn": torch.backends.cudnn.allow_tf32}
-    peak = {j: counting.step_seconds_at_peak(model, counting.pyramid_stats(to_device(pool.batches[j], device), model),
-                                             trains, tf32)
+    peak = {j: reference.peak_seconds(model, to_device(pool.batches[j], device), trains, tf32)
             for j in sorted(set(order))}
     return {"peak_seconds": float(sum(peak[j] for j in order))}
 

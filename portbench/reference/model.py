@@ -318,3 +318,19 @@ class Reference:
         x = self.unary("head.head_mlp", x, bn=False)
         return self.unary("head.head_softmax", x, bn=False), labels, lengths
 
+
+@torch.no_grad()
+def calibrate(model: Dict, weights: Weights, batch: Dict[str, torch.Tensor]) -> None:
+    """Every batch norm's running statistics set, in place, to its batch
+    statistics over ``batch``."""
+    with float32_exact():
+        Reference(model, weights, "calibrate")(batch)
+
+
+@torch.no_grad()
+def logits(model: Dict, weights: Weights, batch: Dict[str, torch.Tensor]):
+    """(logits (ΣN, C) of the real points, lengths) in eval mode, float32 with
+    TF32 off."""
+    with float32_exact():
+        out, _, lengths = Reference(model, weights, "eval")(batch)
+    return out, lengths

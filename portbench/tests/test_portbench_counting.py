@@ -14,7 +14,7 @@ from portbench.weights import draw
 SMALL = dict(architecture=["simple", "resnetb_strided", "nearest_upsample", "unary"],
              first_subsampling_dl=0.1, conv_radius=2.5, first_features_dim=16, num_kernel_points=15,
              num_classes=4, fusion="none", in_features_dim=5, feature_2d_dim=64, pixel_knn=3,
-             num_points=[8, 4], conv_neighbors=[3, 3], pool_neighbors=[3])
+             num_points=[8, 4], conv_neighbors=[3, 3], pool_neighbors=[3], reference="portbench.reference")
 
 
 def test_unet_flops_match_the_flop_counter():

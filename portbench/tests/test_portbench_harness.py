@@ -33,8 +33,9 @@ def test_a_cell_runs_correct_with_its_metrics(name, traced):
     assert out["correct"] and out["failed"] == 0 and out["attempted"] == rec["steps"] > 0
     assert list(out)[-1] == "checks" and set(out["checks"]) == set(cell.limits)
     want = {m["name"] for m in (cell.per_layer if traced else cell.end_to_end)}
-    # on the CPU there is no device memory and no profiled device time
-    cpu_only = {"peak_mem_gib", "device_idle.infer"}
+    # on the CPU there is no device memory, no profiled device time and no
+    # CUDA event of the program's own spans
+    cpu_only = {"peak_mem_gib", "device_idle.infer", "unet_ms.infer"}
     assert want - cpu_only <= set(out["metrics"]) <= want
     assert all(v["value"] > 0 for v in out["metrics"].values())
 
@@ -79,3 +80,6 @@ def test_a_short_run_on_the_card(card):
     assert proc.returncode == 0, proc.stderr[-2000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["correct"] and out["device"]["busy_s"] > 0
+    # every per-layer metric, the one read from the program's own spans too
+    assert set(out["metrics"]) == {m["name"] for m in harness.Cell.from_benchmark(CELLS[0]).per_layer}
+    assert out["metrics"]["unet_ms.infer"]["value"] > 0

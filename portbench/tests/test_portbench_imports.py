@@ -4,6 +4,8 @@ whole by their top-level part (``mvkpconv_tpu_torch`` begins with
 ``mvkpconv_tpu``)."""
 
 import ast
+import importlib.util
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -15,6 +17,8 @@ PKG = ROOT / "portbench"
 JAX = {"jax", "jaxlib", "flax", "mvkpconv_tpu"}
 CHIP = sorted(p for p in PKG.rglob("*.py") if "tests" not in p.parts)
 REFERENCE = sorted((PKG / "reference").glob("*.py"))
+CONFIGS = [json.loads((ROOT / c["file"]).read_text())
+           for c in json.loads((ROOT / "BENCHMARK.json").read_text())["configs"]]
 
 
 def top_level_imports(path: Path):
@@ -59,3 +63,16 @@ def test_the_reference_loads_no_program():
     loaded = _loaded("import portbench.reference.model, portbench.weights, portbench.traffic.generator, "
                      "portbench.traffic.room_spheres, portbench.counting, portbench.check")
     assert not loaded & (JAX | {"mvkpconv_tpu_torch"})
+
+
+@pytest.mark.parametrize("name", sorted({c["reference"] for c in CONFIGS}))
+def test_a_configurations_reference_loads_no_program(name):
+    """Every module a configuration names as its ``reference``: its own files
+    (a package's, all of them) and what importing it loads."""
+    from portbench.harness import FORBIDDEN
+
+    program = set(FORBIDDEN) | {"mvkpconv_tpu_torch"}
+    spec = importlib.util.find_spec(name)
+    files = sorted(Path(spec.origin).parent.glob("*.py")) if spec.submodule_search_locations else [Path(spec.origin)]
+    assert files and not any(top_level_imports(f) & program for f in files)
+    assert not _loaded(f"import {name}") & program

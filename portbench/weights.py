@@ -1,8 +1,10 @@
 """The benchmark's weights: drawn on the device from the run's seed in one
 call, then the batch norms' running statistics calibrated by the reference
-on the whole first batch, so that inference normalises activations as a
-trained network would (calibrated on two of its spheres, points of other
-spheres reached logits of 100 and more; on all five, 23 at most). Named as the port's ``state_dict``, which loads
+(the module that the model dict names, ``references.of``) on the whole
+first batch, so that inference normalises activations as a trained network
+would (calibrated on two of its spheres, points of other spheres reached
+logits of 100 and more; on all five, 23 at most). Named and shaped as the
+reference's ``tensors`` gives them: the port's ``state_dict``, which loads
 them with ``load_state_dict(strict=True)``.
 
 Initialisation: convolution, transposed-convolution and dense kernels
@@ -18,7 +20,7 @@ from typing import Dict
 
 import torch
 
-from portbench.reference.model import Reference, float32_exact, tensors
+from portbench.references import of
 
 
 def _scale(shape, kind) -> float:
@@ -34,7 +36,7 @@ def _scale(shape, kind) -> float:
 
 
 def draw(model: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    entries = tensors(model)
+    entries = of(model).tensors(model)
     sizes = [math.prod(shape) for _, shape, _ in entries]
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -52,9 +54,7 @@ def draw(model: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-@torch.no_grad()
 def calibrate(model: Dict, weights: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor]) -> None:
     """Every batch norm's running statistics set, in place, to its batch
-    statistics over ``batch``."""
-    with float32_exact():
-        Reference(model, weights, "calibrate")(batch)
+    statistics over ``batch``, by the model's reference."""
+    of(model).calibrate(model, weights, batch)
