@@ -61,6 +61,28 @@ def pairwise_sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tenso
     return ((q2[:, :, None] - 2.0 * cross) + s2[:, None, :]).clamp(min=0.0)
 
 
+def difference_sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
+    """(B, Nq, Ns) f32 squared distances of (B, Nq, 3) and (B, Ns, 3)
+    points in the difference form (dx² + dy²) + dz², each step rounded once,
+    as the published PointNet++ CUDA ops (ball query, 3-NN) and P1 compute
+    them: the error scales with d², not with ‖q‖², so a support on a ball's
+    radius or a near key is placed as the published model places it wherever
+    the cloud lies (the expansion form's error at room coordinates of 6 m is
+    ~1e-5 m², a tenth of a percent of the first ball's r² = 0.01 m²). Plain
+    elementwise products and sums: the card and the CPU give the same bits.
+    Computed in place, two (B, Nq, Ns) blocks alive at most (the expansion
+    form holds three), so not differentiable: positions that need no
+    gradient only (PointNet++'s points and centroids)."""
+    q = query.float()
+    s = support.float()
+    d2 = q[:, :, None, 0] - s[:, None, :, 0]
+    d2.mul_(d2)
+    for c in (1, 2):
+        d = q[:, :, None, c] - s[:, None, :, c]
+        d2.add_(d.mul_(d))
+    return d2
+
+
 def query_chunks(b: int, nq: int, ns: int, budget: int = 1 << 26):
     """Slices of the query axis that keep a (B, chunk, Ns) distance matrix
     within ``budget`` elements."""

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from mvkpconv_tpu_torch.ops.common import difference_sq_dists
 from mvkpconv_tpu_torch.ops.gather import group_points
 from mvkpconv_tpu_torch.ops.neighbors import knn
 
@@ -28,9 +29,19 @@ def three_nn_interpolate(
 ) -> torch.Tensor:
     """Key features at the query points: weights 1/max(d², EPS) over the 3
     nearest keys, normalized (the reference's FeatureInterpolator). d² is
-    the expansion form of ``knn``: a query that coincides with a key gets 0
-    there, and so weight 1/EPS, as in the JAX package."""
-    index, sqdist = knn(query_xyz, key_xyz, 3)
+    the difference form of the published CUDA op
+    (``common.difference_sq_dists``; the JAX package takes the expansion
+    form, whose error at room coordinates moves the weights of near keys):
+    a query that coincides with a key gets 0 there, and so weight 1/EPS."""
+    index, sqdist = knn(query_xyz, key_xyz, 3, sq_dists=difference_sq_dists)
+    return inverse_distance_interpolate(key_features, index, sqdist)
+
+
+def inverse_distance_interpolate(
+    key_features: torch.Tensor, index: torch.Tensor, sqdist: torch.Tensor
+) -> torch.Tensor:
+    """The weighted sum of :func:`three_nn_interpolate` given its search:
+    (B, Nq, 3) key indices and their d² → (B, Nq, C)."""
     inv = 1.0 / sqdist.clamp(min=EPS)
     weight = inv / ((inv[..., 0:1] + inv[..., 1:2]) + inv[..., 2:3])
     return feature_interpolate(key_features, index, weight.to(key_features.dtype))

@@ -9,10 +9,14 @@
     (not by distance), short rows padded with the row's first index.
 
 ``knn`` and ``ball_query`` reach no Pallas kernel in the JAX package and run
-as plain PyTorch over the JAX package's expansion d²
-(``common.pairwise_sq_dists``), a block of queries at a time. K1 selects by
-distance, so it computes neither. ``pool_and_upsample`` is not ported (it
-serves only the neighbor methods the port maps to K1).
+as plain PyTorch, a block of queries at a time. K1 selects by distance, so
+it computes neither. ``knn`` takes the JAX package's expansion d²
+(``common.pairwise_sq_dists``) unless given another form; PointNet++'s
+3-NN and ``ball_query`` take the difference form of the published CUDA ops
+(``common.difference_sq_dists``), a departure from the JAX package, whose
+expansion form misplaces supports on a ball's radius at room coordinates.
+``pool_and_upsample`` is not ported (it serves only the neighbor methods
+the port maps to K1).
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import pairwise_sq_dists, query_chunks
+from mvkpconv_tpu_torch.ops.common import difference_sq_dists, pairwise_sq_dists, query_chunks
 from mvkpconv_tpu_torch.ops.kernels.radius_topk import radius_topk
 
 
@@ -53,19 +57,21 @@ def _smallest_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(idx, -1), torch.cat(vals, -1)
 
 
-def knn(query: torch.Tensor, support: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn(query: torch.Tensor, support: torch.Tensor, k: int,
+        sq_dists=pairwise_sq_dists) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest supports of each query with their squared distances.
 
     Takes (B, Nq, 3) and (B, Ns, 3); returns ((B, Nq, k) int32 indices
-    ascending by d², (B, Nq, k) f32 d²). With k > Ns the rows are padded with
-    index Ns − 1 at d² = inf, as in the JAX package.
+    ascending by d², (B, Nq, k) f32 d²), d² by ``sq_dists`` (the JAX
+    package's expansion form unless given another). With k > Ns the rows
+    are padded with index Ns − 1 at d² = inf, as in the JAX package.
     """
     b, nq, _ = query.shape
     ns = support.shape[1]
     keff = min(k, ns)
     idx, vals = [], []
     for sl in query_chunks(b, nq, ns):
-        i, v = _smallest_k(pairwise_sq_dists(query[:, sl], support), keff)
+        i, v = _smallest_k(sq_dists(query[:, sl], support), keff)
         idx.append(i)
         vals.append(v)
     idx, vals = torch.cat(idx, 1), torch.cat(vals, 1)
@@ -76,7 +82,8 @@ def knn(query: torch.Tensor, support: torch.Tensor, k: int) -> Tuple[torch.Tenso
 
 
 def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float, k: int) -> torch.Tensor:
-    """First k supports with d² < radius² of each query, in index order.
+    """First k supports with d² < radius² of each query, in index order,
+    d² in the difference form (``common.difference_sq_dists``).
 
     Takes (B, Nq, 3) and (B, Ns, 3); returns (B, Nq, k) int32. A row with
     fewer than k hits repeats its first hit in the empty slots; a row with
@@ -90,7 +97,7 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float, k: int
     order = torch.arange(ns, dtype=torch.int32, device=query.device)
     idx = []
     for sl in query_chunks(b, nq, ns):
-        d2 = pairwise_sq_dists(query[:, sl], support)
+        d2 = difference_sq_dists(query[:, sl], support)
         ranked = torch.where(d2 < r2.to(d2.device), order, ns)
         first = torch.topk(ranked, keff, dim=-1, largest=False, sorted=True).values
         if keff < k:

@@ -27,6 +27,15 @@ span                   site                                            children
                                                                        ``lift.unet``, ``lift.gather``,
                                                                        ``lift.aggregate``
 ``influence``          ``models/kpfcnn.py:make_influence_cache``       ``sync.kernel_points``
+``model`` (MVPNet)     ``MVPNet3D.forward``                            ``lift`` (the same children as above),
+                                                                       ``pn2``
+``pn2``                ``PN2SSG.forward``                              ``pn2.sa``, ``pn2.fp`` (each with its
+                                                                       ``level``), ``head``
+``pn2.sa``             ``models/pn2.py:SetAbstraction``                ``pn2.fps`` (P1), ``pn2.group`` (the
+                                                                       centroids' gather), ``pn2.ball_query``,
+                                                                       ``pn2.group`` (the neighbours'),
+                                                                       ``pn2.sa.mlp`` (the MLP and the max)
+``pn2.fp``             ``models/pn2.py:FeaturePropagation``            ``pn2.three_nn``, ``pn2.fp.mlp``
 ``sync.<where>``       a copy from host memory that waits for the      —
                        device (``sync.subsample``: the cell size in
                        ``ops/sampling.py:grid_subsample``)
@@ -52,9 +61,10 @@ a pair of CUDA events for its device time (none where the machine has no
 CUDA device), and the change in every hand-written kernel's launch counter
 (:func:`launch_counts`) while it was open. ``pyramid.neighbors`` also
 counts the query rows it hands to K1 and the real ones among them (the
-query level's mask summed on the device, one small reduction a call). The
-counters stay device tensors and Python ints until :func:`export`, so an
-enabled tracer adds no synchronise to a step. Record a CUDA graph with the
+query level's mask summed on the device, one small reduction a call);
+``pn2.ball_query`` counts its neighbour slots and those a real hit fills
+(:func:`count_rows`). The counters stay device tensors and Python ints
+until :func:`export`, so an enabled tracer adds no synchronise to a step. Record a CUDA graph with the
 tracer off: its events and reductions would be captured into the graph.
 """
 
@@ -104,6 +114,22 @@ def span(name: str, level: Optional[int] = None, queries: Optional[torch.Tensor]
     if torch.compiler.is_compiling():
         return _OFF
     return _Span(name, level, queries)
+
+
+def on() -> bool:
+    """Whether spans record now: a site that counts rows asks first, so that
+    the tracer off computes nothing for it."""
+    return _on and not torch.compiler.is_compiling()
+
+
+def count_rows(rows: torch.Tensor) -> None:
+    """Rows for the innermost open span, counted as its ``queries`` would
+    be: ``rows``, a bool tensor with one element a row, True where the row
+    is real."""
+    stack = _open_spans()
+    if _on and stack:
+        stack[-1]["rows"] = rows.numel()
+        stack[-1]["_real"] = rows.sum()
 
 
 def _open_spans() -> list:
@@ -198,7 +224,8 @@ def export() -> List[dict]:
     index of its parent's record in this list, or None), ``depth``,
     ``step``, ``t0_ns`` / ``t1_ns`` (host clock), ``device_ms`` (None
     without CUDA events), ``launches`` ({counter: launches while open},
-    nonzero ones), and for ``pyramid.neighbors`` ``rows`` / ``real_rows``.
+    nonzero ones), and for ``pyramid.neighbors`` and ``pn2.ball_query``
+``rows`` / ``real_rows``.
     Synchronises the device once to read the events; call it between
     steps, outside every span."""
     global _records

@@ -38,6 +38,7 @@ from mvkpconv_tpu_torch.convert import load_jax_variables  # noqa: E402
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch  # noqa: E402
 from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D  # noqa: E402
 from mvkpconv_tpu_torch.models.pn2 import PN2SSG  # noqa: E402
+from mvkpconv_tpu_torch.ops.common import difference_sq_dists  # noqa: E402
 from mvkpconv_tpu_torch.ops.interpolate import three_nn_interpolate  # noqa: E402
 from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn  # noqa: E402
 from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample  # noqa: E402
@@ -146,20 +147,21 @@ def test_three_nn_interpolate_matches_jax(rng):
     """Each package against a float64 truth on its own neighbors (equal
     here), with a quarter of the dense points on a key as at FP3, where
     every centroid is a dense point (d² exactly 0 there in both packages:
-    the weight is 1/1e-10). Elsewhere the expansion's rounding scales with
-    ‖q‖², not d², so the weights 1/d² of close neighbors follow it, in JAX
-    as in the port, and the two packages round differently (XLA fuses
-    multiply-adds on the CPU, the port does not). The witness is JAX's own
-    error: the port's RMS error within 2x JAX's, its largest within 4x
-    (over seeds 0-29 the ratios read 0.71-1.63 and 0.43-2.30; JAX's largest
-    error 2.1e-5-4.9e-5 of max|output| over seeds 0-5)."""
+    the weight is 1/1e-10). Elsewhere JAX's expansion form rounds with
+    ‖q‖², not d², so the weights 1/d² of close neighbors follow it; the
+    port takes the difference form of the published CUDA op
+    (``common.difference_sq_dists``), whose rounding scales with d². The
+    witness is JAX's own error: the port's RMS error within 2x JAX's, its
+    largest within 4x (with the port on the expansion form too, over seeds
+    0-29 the ratios read 0.71-1.63 and 0.43-2.30; JAX's largest error
+    2.1e-5-4.9e-5 of max|output| over seeds 0-5)."""
     dense = cloud(rng, 2, 512)
     sparse = dense[:, ::4].copy()
     feat = rng.randn(2, 128, 16).astype(np.float32)
     want = np.asarray(jax.jit(jax_interp.three_nn_interpolate)(dense, sparse, feat))
     got = three_nn_interpolate(T(dense), T(sparse), T(feat)).numpy()
     want_idx = np.asarray(jax.jit(functools.partial(jax_nb.knn, k=3))(dense, sparse)[0])
-    got_idx = knn(T(dense), T(sparse), 3)[0].numpy()
+    got_idx = knn(T(dense), T(sparse), 3, sq_dists=difference_sq_dists)[0].numpy()
     np.testing.assert_array_equal(got_idx, want_idx)
     jax_err = want - interpolate_f64(dense, sparse, feat, want_idx)
     port_err = got - interpolate_f64(dense, sparse, feat, got_idx)
