@@ -147,7 +147,8 @@ Phases, each printed as one JSON line:
      7, a 4,096-point chunk timed, and the last chunk, padded with points
      at the origin);
      pn2_index_ops, the FPS, ball query and 3-NN of one PN2SSG forward on
-     those points, each call timed (the FPS is an eager host loop);
+     those points, each call timed (P1 and P2), each search's plain version
+     beside it; then phase 34;
      k3_pn2_sa0, k3_pn2_fp3, k3_pn2_padded: K3 held like phase 7 at the
      SA0 feature gather, the FP3 interpolation gather and a ball query
      whose rows mostly repeat their centroid, f32, bf16 and rounded rows,
@@ -328,6 +329,20 @@ Phases, each printed as one JSON line:
      alone as ``library_ms``) and a UNet (K5, the module path in float32 and
      in TF32) beside the 3xTF32 bound (3 x FLOPs at 495 TFLOP/s) and the
      float32 SIMT bound (FLOPs at 67 TFLOP/s).
+
+ 34. p2_ball_sa0..3, p2_nn_fp0..3 (inside phase 17, after pn2_index_ops):
+     kernel P2 (``csrc/pn2_search.cu``), PointNet++'s ball query and 3-NN,
+     at the ``mvpnet.infer`` cell's eight searches (B = 5 chunks of 8,192
+     points from ``ChunkDataset``, P1's centroids): the indices (and the
+     3-NN's d², bit for bit) equal to the plain versions; the plan; the
+     call's ms, the kernel's device ms (``torch.profiler``) against its
+     bound (8 operations a pair at 67 TFLOP/s: for the ball query the pairs
+     its early exit needs, every pair beside it) and the plain version's ms;
+     p2_forward_sum, the eight together; p2_*_adv_*, untimed: a support
+     exactly on the radius (out) and one ulp inside (in), short and empty
+     balls, fewer supports than k, three shared-memory tiles, ragged query
+     counts, the 3-NN on a quarter grid (exact ties, the lower index first)
+     over one and three tiles, and with 1 and 2 supports.
 
 Every phase's line carries ``t_s``, the script's seconds so far.
 
@@ -1277,6 +1292,7 @@ def kernel_counters():
     from mvkpconv_tpu_torch.ops.kernels import fps as p1
     from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
     from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
+    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
     from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
     from mvkpconv_tpu_torch.ops.kernels import segsum as k3
 
@@ -1286,7 +1302,7 @@ def kernel_counters():
             "segsum_plan": k3.segsum_plan,
             "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
             "kpconv_wf": k4.kpconv_wf, "farthest_point_sample": p1.farthest_point_sample,
-            "unet_conv": k5.unet_conv}
+            "ball_query": p2.ball_query, "three_nn": p2.three_nn, "unet_conv": k5.unet_conv}
 
 
 def reset_launches():
@@ -1954,6 +1970,7 @@ def check_cli_fusions(dev, smi, tmp):
 # test_mvpnet, precompute_2d): K2 and K3 at the shapes the MVPNet path gives them
 
 PN2_LEVELS = ((2048, 0.1), (512, 0.2), (128, 0.4), (32, 0.8))  # PN2SSG's centroids and radii
+MAX_NEIGHBORS = 32  # PN2SSG's ball
 
 
 def chunk_scenes(num_views, hw):
@@ -1976,27 +1993,172 @@ def mvpnet_batch(dev, scenes, b=4, n=8192, num_views=3, seed=0):
 def pn2_index_ops(points):
     """The index tensors one PN2SSG forward builds from (B, N, 3) points —
     per set-abstraction level the FPS (kernel P1) and the ball query of its
-    centroids, per propagation level the 3-NN — and the time of each call
-    (CUDA events around the calls)."""
+    centroids, per propagation level the 3-NN, both searches kernel P2 as
+    PN2 runs them — and the time of each call (CUDA events around the
+    calls), each search's plain version beside it."""
     from mvkpconv_tpu_torch.ops.gather import batch_index_select
-    from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn
+    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
+    from mvkpconv_tpu_torch.ops.kernels.radius_topk import squared_radius
+    from mvkpconv_tpu_torch.ops.neighbors import ball_query, three_nn
     from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample
 
     xyz, levels = points, [points]
-    times = {"fps": [], "ball_query": [], "knn": []}
+    times = {"fps": [], "ball_query": [], "ball_query_plain": [], "three_nn": [], "three_nn_plain": []}
     sa, fp = [], []
     for m, r in PN2_LEVELS:
         times["fps"].append(cuda_ms(lambda: farthest_point_sample(xyz, m), reps=5, warmup=1))  # noqa: B023
         new = batch_index_select(xyz, farthest_point_sample(xyz, m))
-        times["ball_query"].append(cuda_ms(lambda: ball_query(new, xyz, r, 32), reps=3, warmup=1))  # noqa: B023
-        sa.append((ball_query(new, xyz, r, 32), xyz.shape[1]))
+        times["ball_query"].append(cuda_ms(lambda: ball_query(new, xyz, r, MAX_NEIGHBORS), reps=5,  # noqa: B023
+                                           warmup=1))
+        times["ball_query_plain"].append(cuda_ms(
+            lambda: p2.ball_query_plain(new, xyz, squared_radius(r), MAX_NEIGHBORS), reps=3, warmup=1))  # noqa: B023
+        sa.append((ball_query(new, xyz, r, MAX_NEIGHBORS), xyz.shape[1]))
         xyz = new
         levels.append(xyz)
     for i in range(len(PN2_LEVELS)):
         dense, sparse = levels[-2 - i], levels[-1 - i]
-        times["knn"].append(cuda_ms(lambda: knn(dense, sparse, 3), reps=3, warmup=1))  # noqa: B023
-        fp.append((knn(dense, sparse, 3)[0], sparse.shape[1]))
+        times["three_nn"].append(cuda_ms(lambda: three_nn(dense, sparse), reps=5, warmup=1))  # noqa: B023
+        times["three_nn_plain"].append(cuda_ms(lambda: p2.three_nn_plain(dense, sparse), reps=3,  # noqa: B023
+                                               warmup=1))
+        fp.append((three_nn(dense, sparse)[0], sparse.shape[1]))
     return times, sa, fp, levels
+
+
+P2_OPS_PER_PAIR = 8  # d² of a (query, support) pair: 3 differences, 3 products, 2 sums
+
+
+def check_p2_ball(name, query, support, r2, k, rows, timed=True, **extra):
+    """P2's ball query against its plain version on the same inputs: the
+    indices equal; the plan; the slots a real hit fills. Timed: the call's
+    ms and the kernel's device ms against the bound of the pairs the early
+    exit needs (a full row tests the supports up to its k-th hit, a short
+    one all Ns; ``P2_OPS_PER_PAIR`` operations each at 67 TFLOP/s, or the
+    points read once and the indices written once at 3.35 TB/s), the bound
+    of every pair beside it, and the plain version's ms."""
+    import torch
+    from mvkpconv_tpu_torch.models.pn2 import real_slots
+    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
+
+    b, nq, _ = query.shape
+    ns = support.shape[1]
+    got = p2.ball_query(query, support, r2, k)
+    torch.cuda.synchronize()
+    want = p2.ball_query_plain(query, support, r2, k)
+    differ = int((got != want).sum())
+    row = {"phase": name, "b": b, "nq": nq, "ns": ns, "k": k, "r2": r2, "indices_differ": differ,
+           "plan": p2.ball_query_plan(b, nq, ns)._asdict(),
+           "slots_filled": float(real_slots(want, ns).float().mean()), **extra}
+    if timed:
+        full = want[..., -1] > want[..., 0]
+        needed = int(torch.where(full, want[..., -1].long() + 1, ns).sum())
+        row["ms"] = cuda_ms(lambda: p2.ball_query(query, support, r2, k), reps=20)
+        row["plain_ms"] = cuda_ms(lambda: p2.ball_query_plain(query, support, r2, k), reps=3, warmup=1)
+        row["device_ms"] = device_ms_by(lambda: p2.ball_query(query, support, r2, k), reps=20,
+                                        names=("ball_query_kernel",))["ball_query_kernel"]
+        row["pairs"], row["pairs_needed"] = b * nq * ns, needed
+        row.update(bound(nbytes(query, support, got), P2_OPS_PER_PAIR * needed))
+        row["bound_every_pair_ms"] = bound(nbytes(query, support, got), P2_OPS_PER_PAIR * b * nq * ns)["bound_ms"]
+        row["share"] = row["bound_ms"] / row["device_ms"]
+    emit(row)
+    rows.append(row)
+    assert differ == 0, f"{name}: {differ} indices differ from the plain version"
+    return want
+
+
+def check_p2_nn(name, query, support, rows, timed=True, **extra):
+    """P2's 3-NN against its plain version: the indices equal and the d²
+    equal bit for bit; the plan. Timed: the call's ms, the kernel's device
+    ms against its bound (every pair, ``P2_OPS_PER_PAIR`` operations at
+    67 TFLOP/s, or the bytes at 3.35 TB/s) and the plain version's ms."""
+    import torch
+    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
+
+    b, nq, _ = query.shape
+    ns = support.shape[1]
+    got_i, got_d = p2.three_nn(query, support)
+    torch.cuda.synchronize()
+    want_i, want_d = p2.three_nn_plain(query, support)
+    differ = int((got_i != want_i).sum()) + int((got_d.view(torch.int32) != want_d.view(torch.int32)).sum())
+    row = {"phase": name, "b": b, "nq": nq, "ns": ns, "differ": differ,
+           "plan": p2.three_nn_plan(b, nq, ns)._asdict(), **extra}
+    if timed:
+        row["ms"] = cuda_ms(lambda: p2.three_nn(query, support), reps=20)
+        row["plain_ms"] = cuda_ms(lambda: p2.three_nn_plain(query, support), reps=3, warmup=1)
+        row["device_ms"] = device_ms_by(lambda: p2.three_nn(query, support), reps=20,
+                                        names=("three_nn_kernel",))["three_nn_kernel"]
+        row["pairs"] = b * nq * ns
+        row.update(bound(nbytes(query, support, got_i, got_d), P2_OPS_PER_PAIR * b * nq * ns))
+        row["share"] = row["bound_ms"] / row["device_ms"]
+    emit(row)
+    rows.append(row)
+    assert differ == 0, f"{name}: {differ} indices or d² differ from the plain version"
+    return want_i, want_d
+
+
+def check_p2_planted(dev, rows):
+    """P2, untimed, on inputs made to break it, each against its plain
+    version: a support exactly on a query's radius (r² planted as that
+    pair's rounded d², from the plain d² on the card: it must be out) and
+    one ulp inside (in); rows with fewer hits than k and rows with none;
+    fewer supports than k; supports over three shared-memory tiles with full
+    and short balls; queries not a multiple of a CTA's; the 3-NN on a
+    quarter grid (every d² exact, ties everywhere, ties to the lower index)
+    over one and over three tiles, and with 1 and 2 supports."""
+    import torch
+    from mvkpconv_tpu_torch.ops.common import difference_sq_dists
+    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
+    from mvkpconv_tpu_torch.ops.kernels.radius_topk import squared_radius
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    room = torch.tensor([3.1, 5.7, 1.3], device=dev)
+    cloud = lambda b, n, scale=1.0: torch.rand(b, n, 3, generator=g, device=dev) * scale + room  # noqa: E731
+    s, q = cloud(5, 8192), cloud(5, 2048)
+    planted = float(difference_sq_dists(q[:1, :1], s[:1, 7:8])[0, 0, 0])
+    on = check_p2_ball("p2_ball_adv_on_the_radius", q, s, planted, 32, rows, timed=False)
+    inside = torch.nextafter(torch.tensor(planted, dtype=torch.float32), torch.tensor(float("inf")))
+    ulp = check_p2_ball("p2_ball_adv_one_ulp_inside", q, s, float(inside), 32, rows, timed=False)
+    hits_before_7 = int((difference_sq_dists(q[:1, :1], s[:1, :7]) < planted).sum())
+    assert 7 not in on[0, 0].tolist() and (hits_before_7 >= 32 or 7 in ulp[0, 0].tolist()), (on[0, 0], ulp[0, 0])
+    far = torch.cat([s[:, :200], s[:, :40] + 50.0], 1)  # 40 rows with no hit
+    short = check_p2_ball("p2_ball_adv_short_and_empty", far, s, squared_radius(0.02), 32, rows, timed=False)
+    assert bool((short[:, 200:] == s.shape[1]).all()) and bool((short[:, :200, -1] == short[:, :200, 0]).any())
+    check_p2_ball("p2_ball_adv_fewer_supports_than_k", cloud(5, 37, 0.1), cloud(5, 10, 0.1), squared_radius(0.15),
+                  32, rows, timed=False)
+    tiles, r2 = cloud(5, 3 * p2.MAX_TILE - 77, 0.6), squared_radius(0.1)
+    check_p2_ball("p2_ball_adv_three_tiles", tiles[:, ::41].contiguous(), tiles, r2, 32, rows, timed=False)
+    check_p2_ball("p2_ball_adv_ragged_queries", cloud(3, 1001), cloud(3, 5000), r2, 32, rows, timed=False)
+    grid = lambda b, n: torch.randint(0, 6, (b, n, 3), generator=g, device=dev).float() * 0.25  # noqa: E731
+    check_p2_nn("p2_nn_adv_ties", grid(5, 2000), grid(5, 512), rows, timed=False)
+    check_p2_nn("p2_nn_adv_ties_three_tiles", grid(5, 3001), grid(5, 3 * p2.MAX_TILE - 77), rows, timed=False)
+    check_p2_nn("p2_nn_adv_one_support", cloud(5, 300), cloud(5, 1), rows, timed=False)
+    check_p2_nn("p2_nn_adv_two_supports", cloud(5, 300), cloud(5, 2), rows, timed=False)
+
+
+def check_pn2_search(dev, scenes, smi, rows):
+    """P2 at the ``mvpnet.infer`` cell's eight searches (B = 5 chunks of
+    8,192 points: the ball queries of SA0-SA3, 2,048 / 512 / 128 / 32
+    centroids at radii 0.1-0.8, 32 neighbours; the 3-NN of FP3-FP0), each
+    held bit-equal to its plain version and timed (``check_p2_ball``,
+    ``check_p2_nn``), then ``check_p2_planted``; ``p2_forward_sum`` adds
+    the eight searches' kernel device ms, bounds and plain ms."""
+    from mvkpconv_tpu_torch.ops.gather import batch_index_select
+    from mvkpconv_tpu_torch.ops.kernels.radius_topk import squared_radius
+    from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample
+
+    levels = [mvpnet_batch(dev, scenes, b=5)["points"].contiguous()]
+    for m, _ in PN2_LEVELS:
+        levels.append(batch_index_select(levels[-1], farthest_point_sample(levels[-1], m)).contiguous())
+    timed = []
+    for i, (_, r) in enumerate(PN2_LEVELS):
+        check_p2_ball(f"p2_ball_sa{i}", levels[i + 1], levels[i], squared_radius(r), MAX_NEIGHBORS, timed)
+    for i in range(len(PN2_LEVELS)):
+        check_p2_nn(f"p2_nn_fp{i}", levels[-2 - i], levels[-1 - i], timed)
+    emit({"phase": "p2_forward_sum", "searches": len(timed),
+          **{x: sum(r[x] for r in timed) for x in ("device_ms", "ms", "plain_ms", "bound_ms")},
+          "card": smi})
+    rows.extend(timed)
+    check_p2_planted(dev, rows)
 
 
 def precompute_k2_inputs(dev):
@@ -2165,9 +2327,10 @@ def check_fps_adversarial(dev, rows):
                   timed=False, plan=fps.Plan(n, c, 64 if k else 256, k))
 
 
-def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows):
+def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows, p2_rows):
     """K2, K3 and P1 where the MVPNet path hands them other inputs than the
-    bench's (P1 at PN2SSG's four levels, then ``check_fps_adversarial``): K2 at ``MVPNet3D``'s selection (4 chunks of 8192 points, 3 views
+    bench's (P1 at PN2SSG's four levels, then ``check_fps_adversarial``; P2
+    by ``check_pn2_search``): K2 at ``MVPNet3D``'s selection (4 chunks of 8192 points, 3 views
     of 120x160, window 9, k = 3, f32 candidates), timed; K3 at the SA0
     feature gather (ball-query index (4, 2048, 32) into 8192 targets, 64
     wide), the FP3 interpolation gather (3-NN index (4, 8192, 3) into 2048
@@ -2200,6 +2363,7 @@ def check_mvpnet_kernels(dev, gen, scenes, smi, k2_rows, k3_rows, p1_rows):
     emit({"phase": "pn2_index_ops", "points": list(p.shape), "levels": [list(x.shape) for x in levels],
           "ms": times, "ms_per_forward": per_forward, "timing": "CUDA events around each call",
           "fps_earlier": FPS_EARLIER_MS, "card": smi})
+    check_pn2_search(dev, scenes, smi, p2_rows)
     # P1 at PN2SSG's four set-abstraction levels, then on adversarial inputs
     for i, ((m, _radius), level) in enumerate(zip(PN2_LEVELS, levels)):
         check_fps(f"fps_sa{i}", level.contiguous(), m, p1_rows)
@@ -2323,6 +2487,8 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     assert val_l["pixel_topk"] == 4 and val_l["segsum"] == val_l["segsum_plan"] == 0, val_l
     # P1 once a set-abstraction level, a step and a validation forward
     assert steps_l["farthest_point_sample"] == 4 * 3 and val_l["farthest_point_sample"] == 4 * 4, (steps_l, val_l)
+    # P2 once a set-abstraction level (the ball query) and once a propagation level (the 3-NN)
+    assert all(steps_l[k] == 4 * 3 and val_l[k] == 4 * 4 for k in ("ball_query", "three_nn")), (steps_l, val_l)
     assert not any(steps_l[k] + val_l[k] for k in never), (steps_l, val_l)
     fresh = make_model(trainer.cfg, dev, seed=0, kind="mvpnet")
     got_2d, start = trainer.model.net_2d.state_dict(), fresh.state_dict()
@@ -2344,7 +2510,7 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
           "val_miou": mious, "index_ops_ms_per_forward": index_ms,
           "launches_steps": steps_l, "launches_validation": val_l,
           "launches_per_step": {k: steps_l[k] / 3 for k in ("pixel_topk", "segsum", "segsum_plan",
-                                                            "farthest_point_sample")},
+                                                            "farthest_point_sample", "ball_query", "three_nn")},
           "net_2d_equal_bitwise": True, "params_moved": moved, "params_outside_net_2d": len(outside),
           "card": smi})
     reset_launches()
@@ -2354,7 +2520,8 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     launches_test = read_launches()
     chunks = per_scene[0]["chunks"]
     assert launches_test["pixel_topk"] == math.ceil(chunks / per_forward), (launches_test, chunks)
-    assert launches_test["farthest_point_sample"] == 4 * launches_test["pixel_topk"], launches_test
+    assert all(launches_test[k] == 4 * launches_test["pixel_topk"]
+               for k in ("farthest_point_sample", "ball_query", "three_nn")), launches_test
     assert launches_test["segsum"] == 0 and not any(launches_test[k] for k in never), launches_test
     assert np.isfinite(ev.miou) and per_scene[0]["coverage"] > 0.5, (ev.miou, per_scene)
     emit({"phase": "test_mvpnet", "stride": 0.5, "scenes": 1, "chunks": chunks,
@@ -2367,7 +2534,7 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
         dev)
     assert trainer.step == 3 and np.isfinite(trainer.meters.meters["loss"].values).all()
     assert pn2_l["pixel_topk"] == 0 and pn2_l["segsum"] == pn2_l["segsum_plan"] == 7 * 3, pn2_l
-    assert pn2_l["farthest_point_sample"] == 4 * 3, pn2_l
+    assert pn2_l["farthest_point_sample"] == pn2_l["ball_query"] == pn2_l["three_nn"] == 4 * 3, pn2_l
     assert pn2_val["pixel_topk"] == pn2_val["segsum"] == 0 and not any(pn2_l[k] for k in never), pn2_val
     emit({"phase": "train_pn2_full", "config": "train_mvpnet --no-images (PN2SSG on the points' colors, the "
           "same sizes)", **trainer_row(trainer, seconds, peak), "val_miou": val_mious(tmp / "train_pn2_run"),
@@ -2395,7 +2562,8 @@ def check_mvpnet_workflow(dev, smi, tmp, scenes, index_ms, pre_shapes):
     assert feat.shape == (n, 64) and np.isfinite(feat).all() and np.abs(feat).max() > 0, feat.shape
     assert launches_pre["pixel_topk"] == math.ceil(n / 4096) == len(shapes) and launches_pre["segsum"] == 0, \
         (launches_pre, len(shapes))
-    assert launches_pre["farthest_point_sample"] == 0, launches_pre
+    assert launches_pre["farthest_point_sample"] == launches_pre["ball_query"] == launches_pre["three_nn"] == 0, \
+        launches_pre
     # the shapes check_mvpnet_kernels held K2 at, first and padded chunk
     assert set(shapes) == pre_shapes, (set(shapes), pre_shapes)
     emit({"phase": "precompute_2d", "points": n, "chunks": len(shapes), "frames": shapes[0][1][1],
@@ -3301,6 +3469,7 @@ def check_export_mvpnet(dev, smi, scenes, tmp, calls=5):
     assert tuple(got.shape) == (4, 8192, cfg.num_classes), got.shape
     assert bool(torch.isfinite(got).all()) and err <= EXPORT_PROB_REL * top, "export/eager probabilities disagree"
     assert launches["farthest_point_sample"] == 4 * calls and launches["pixel_topk"] == calls, launches
+    assert launches["ball_query"] == launches["three_nn"] == 4 * calls, launches
     assert not any(launches[k] for k in ("radius_topk", "segsum", "kpconv_fused_fwd")), launches
     return launches
 
@@ -3915,8 +4084,8 @@ def main() -> int:
     check_deform_sites(deform_config(), levels, calls, gen, k1_rows, k3_rows)
     # the MVPNet path's pixel selection and PN2's gathers (train_mvpnet)
     mv_scenes = chunk_scenes(3, (120, 160))
-    p1_rows = []
-    index_ms, pre_shapes = check_mvpnet_kernels(dev, gen, mv_scenes, smi, k2_rows, k3_rows, p1_rows)
+    p1_rows, p2_rows = [], []
+    index_ms, pre_shapes = check_mvpnet_kernels(dev, gen, mv_scenes, smi, k2_rows, k3_rows, p1_rows, p2_rows)
     top = len(pyr.points) - 1
     for name, q_l, s_l, inds, entry, cin, cout in (
         ("k4_L0_simple", 0, 0, pyr.neighbors[0], enc[0], enc[0][1], enc[0][2] // 2),
@@ -4150,6 +4319,20 @@ def main() -> int:
          "levels": [{x: r[x] for x in ("phase", "b", "n", "s", "plan", "ms", "plain_ms", "bound_ms", "bound_by",
                                        "serial_steps", "us_per_step", "device_ms", "device_us_per_step")}
                     for r in p1_rows[:len(PN2_LEVELS)]]},
+        {"name": "pn2_search", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/pn2_search.cu",
+         "replaces": "none: P2, port-only (the JAX ball_query and knn, mvkpconv_tpu/ops/neighbors.py, are plain "
+                     "jnp over distance blocks, no pl.pallas_call)",
+         "launches": {k: mvpnet_paths["train_mvpnet"][k] for k in ("ball_query", "three_nn")},
+         "launches_by_path": path_launches("ball_query", "three_nn"),
+         "max_abs_err": float(sum(r.get("indices_differ", r.get("differ", 0)) for r in p2_rows)),
+         "design": "ball_query_kernel: a warp a query, 32 supports a step from a shared-memory tile, ballot and "
+                   "popc place hits in index order, early exit at k; three_nn_kernel: a thread a query, the best "
+                   "three (d2 bits, index) keys in registers; d2 never leaves registers",
+         "timing": "the profiler's kernel ms; the mvpnet.infer cell's eight searches (B = 5 chunks of 8192 points)",
+         **{x: sum(r[x] for r in p2_rows[:2 * len(PN2_LEVELS)]) for x in ("device_ms", "ms", "plain_ms", "bound_ms")},
+         "bound_by": "operations", "library_ms": None,
+         "levels": [{x: r[x] for x in ("phase", "b", "nq", "ns", "plan", "ms", "plain_ms", "device_ms", "bound_ms",
+                                       "bound_by", "share")} for r in p2_rows[:2 * len(PN2_LEVELS)]]},
         {"name": "unet_conv", "route": "cuda", "source": "mvkpconv_tpu_torch/csrc/unet_conv.cu",
          "replaces": "none: the JAX UNet (mvkpconv_tpu/models/unet2d.py) is flax nn.Conv on XLA; added because the "
                      "port's float32 UNet ran cuDNN's FFT GEMM in 2,666 launches a call",

@@ -23,9 +23,10 @@ The dropout before ``seg_logit`` draws its masks from the model's own
 Tracer spans (``tracing.py``): ``pn2`` around the forward; ``pn2.sa`` and
 ``pn2.fp`` with their level; inside a set abstraction ``pn2.fps`` (P1's
 launch alone), ``pn2.group`` (the centroids' gather, then the neighbours'),
-``pn2.ball_query`` (which counts its neighbour slots and those a real hit
-fills) and ``pn2.sa.mlp`` (the MLP and the max); inside a propagation
-``pn2.three_nn`` (the search) and ``pn2.fp.mlp``; ``head``.
+``pn2.ball_query`` (kernel P2's ball query on the card; the span counts
+its neighbour slots and those a real hit fills) and ``pn2.sa.mlp`` (the MLP
+and the max); inside a propagation ``pn2.three_nn`` (P2's 3-NN) and
+``pn2.fp.mlp``; ``head``.
 """
 
 from __future__ import annotations
@@ -37,10 +38,9 @@ from torch import nn
 
 from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.models.feature_aggregation import SharedMLP
-from mvkpconv_tpu_torch.ops.common import difference_sq_dists
 from mvkpconv_tpu_torch.ops.gather import batch_index_select, group_points
 from mvkpconv_tpu_torch.ops.interpolate import inverse_distance_interpolate
-from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn
+from mvkpconv_tpu_torch.ops.neighbors import ball_query, three_nn
 from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample
 
 
@@ -107,7 +107,7 @@ class FeaturePropagation(nn.Module):
         through the MLP."""
         with tracing.span("pn2.fp", self.level):
             with tracing.span("pn2.three_nn"):
-                index, sqdist = knn(dense_xyz, sparse_xyz, 3, sq_dists=difference_sq_dists)
+                index, sqdist = three_nn(dense_xyz, sparse_xyz)
             x = inverse_distance_interpolate(sparse_feature, index, sqdist)
             if dense_feature is not None:
                 x = torch.cat([x, dense_feature], dim=-1)

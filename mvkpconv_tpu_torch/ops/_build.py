@@ -57,6 +57,10 @@ SIGNATURES = {
     # points, mask (or NULL), out, scratch (NULL unless the plan's k is 0), B, N, S,
     # the plan's clusters, threads and k (ops/kernels/fps.py plan), stream
     "mvkp_fps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # query, support, out, B, Nq, Ns, r2, k, the plan's warps a CTA and tile (pn2_search.py), stream
+    "mvkp_ball_query": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    # query, support, idx, d2, B, Nq, Ns, the plan's threads a CTA and tile, stream
+    "mvkp_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # x, x2, w, bias, bn weight, bias, mean, var, residual, out (NULL where absent),
     # B, H, W, C1, C2, OH, OW, Cout, KH, KW, stride, pad, transposed, relu, eps,
     # partial (NULL unless splits > 1), splits, stream

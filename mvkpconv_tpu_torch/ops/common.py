@@ -64,9 +64,9 @@ def pairwise_sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tenso
 def difference_sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     """(B, Nq, Ns) f32 squared distances of (B, Nq, 3) and (B, Ns, 3)
     points in the difference form (dx² + dy²) + dz², each step rounded once,
-    as the published PointNet++ CUDA ops (ball query, 3-NN) and P1 compute
-    them: the error scales with d², not with ‖q‖², so a support on a ball's
-    radius or a near key is placed as the published model places it wherever
+    as the published PointNet++ CUDA ops (ball query, 3-NN), P1 and P2
+    compute them: the error scales with d², not with ‖q‖², so a support on
+    a ball's radius or a near key is placed as the published model places it wherever
     the cloud lies (the expansion form's error at room coordinates of 6 m is
     ~1e-5 m², a tenth of a percent of the first ball's r² = 0.01 m²). Plain
     elementwise products and sums: the card and the CPU give the same bits.

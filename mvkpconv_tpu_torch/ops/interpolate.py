@@ -8,9 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import difference_sq_dists
 from mvkpconv_tpu_torch.ops.gather import group_points
-from mvkpconv_tpu_torch.ops.neighbors import knn
+from mvkpconv_tpu_torch.ops.neighbors import three_nn
 
 
 def feature_interpolate(
@@ -28,12 +27,13 @@ def three_nn_interpolate(
     query_xyz: torch.Tensor, key_xyz: torch.Tensor, key_features: torch.Tensor
 ) -> torch.Tensor:
     """Key features at the query points: weights 1/max(d², EPS) over the 3
-    nearest keys, normalized (the reference's FeatureInterpolator). d² is
-    the difference form of the published CUDA op
-    (``common.difference_sq_dists``; the JAX package takes the expansion
-    form, whose error at room coordinates moves the weights of near keys):
-    a query that coincides with a key gets 0 there, and so weight 1/EPS."""
-    index, sqdist = knn(query_xyz, key_xyz, 3, sq_dists=difference_sq_dists)
+    nearest keys, normalized (the reference's FeatureInterpolator). The
+    search is ``neighbors.three_nn`` (kernel P2 on the card), d² the
+    difference form of the published CUDA op (``common.difference_sq_dists``;
+    the JAX package takes the expansion form, whose error at room
+    coordinates moves the weights of near keys): a query that coincides
+    with a key gets 0 there, and so weight 1/EPS."""
+    index, sqdist = three_nn(query_xyz, key_xyz)
     return inverse_distance_interpolate(key_features, index, sqdist)
 
 

@@ -6,17 +6,20 @@
     the pyramid;
   * ``knn``: the exact k nearest supports, ascending by d²;
   * ``ball_query``: the first k supports inside a radius **in index order**
-    (not by distance), short rows padded with the row's first index.
+    (not by distance), short rows padded with the row's first index;
+  * ``three_nn``: PointNet++'s 3 nearest supports, ascending by d².
 
-``knn`` and ``ball_query`` reach no Pallas kernel in the JAX package and run
-as plain PyTorch, a block of queries at a time. K1 selects by distance, so
-it computes neither. ``knn`` takes the JAX package's expansion d²
-(``common.pairwise_sq_dists``) unless given another form; PointNet++'s
-3-NN and ``ball_query`` take the difference form of the published CUDA ops
-(``common.difference_sq_dists``), a departure from the JAX package, whose
-expansion form misplaces supports on a ball's radius at room coordinates.
-``pool_and_upsample`` is not ported (it serves only the neighbor methods
-the port maps to K1).
+``knn`` reaches no Pallas kernel in the JAX package and runs as plain
+PyTorch, a block of queries at a time, on the JAX package's expansion d²
+(``common.pairwise_sq_dists``), for the brute-force pixel k-NN's parity with
+it. PointNet++'s ``ball_query`` and ``three_nn`` take the difference form of
+the published CUDA ops (``common.difference_sq_dists``), a departure from
+the JAX package, whose expansion form misplaces supports on a ball's radius
+at room coordinates; they are kernel P2 (``ops/kernels/pn2_search.py``) on
+the card, their plain versions on the CPU. The two forms conflict, so the
+pixel path and PointNet++'s share no selection code. K1 selects by distance,
+so it computes none of them. ``pool_and_upsample`` is not ported (it serves
+only the neighbor methods the port maps to K1).
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from typing import Tuple
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import difference_sq_dists, pairwise_sq_dists, query_chunks
-from mvkpconv_tpu_torch.ops.kernels.radius_topk import radius_topk
+from mvkpconv_tpu_torch.ops.common import pairwise_sq_dists, query_chunks
+from mvkpconv_tpu_torch.ops.kernels import pn2_search
+from mvkpconv_tpu_torch.ops.kernels.pn2_search import three_nn  # noqa: F401
+from mvkpconv_tpu_torch.ops.kernels.radius_topk import radius_topk, squared_radius
 
 
 def radius_neighbors(
@@ -57,21 +62,20 @@ def _smallest_k(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(idx, -1), torch.cat(vals, -1)
 
 
-def knn(query: torch.Tensor, support: torch.Tensor, k: int,
-        sq_dists=pairwise_sq_dists) -> Tuple[torch.Tensor, torch.Tensor]:
+def knn(query: torch.Tensor, support: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest supports of each query with their squared distances.
 
     Takes (B, Nq, 3) and (B, Ns, 3); returns ((B, Nq, k) int32 indices
-    ascending by d², (B, Nq, k) f32 d²), d² by ``sq_dists`` (the JAX
-    package's expansion form unless given another). With k > Ns the rows
-    are padded with index Ns − 1 at d² = inf, as in the JAX package.
+    ascending by d², (B, Nq, k) f32 d²), d² in the JAX package's expansion
+    form. With k > Ns the rows are padded with index Ns − 1 at d² = inf, as
+    in the JAX package.
     """
     b, nq, _ = query.shape
     ns = support.shape[1]
     keff = min(k, ns)
     idx, vals = [], []
     for sl in query_chunks(b, nq, ns):
-        i, v = _smallest_k(sq_dists(query[:, sl], support), keff)
+        i, v = _smallest_k(pairwise_sq_dists(query[:, sl], support), keff)
         idx.append(i)
         vals.append(v)
     idx, vals = torch.cat(idx, 1), torch.cat(vals, 1)
@@ -88,19 +92,9 @@ def ball_query(query: torch.Tensor, support: torch.Tensor, radius: float, k: int
     Takes (B, Nq, 3) and (B, Ns, 3); returns (B, Nq, k) int32. A row with
     fewer than k hits repeats its first hit in the empty slots; a row with
     none holds Ns throughout (the reference's oracle asserts hits, and a
-    centroid drawn from the supports always hits itself).
+    centroid drawn from the supports always hits itself). radius² is the
+    float32 square of the float32 radius (``squared_radius``, the bits of
+    ``torch.tensor(radius, dtype=torch.float32) ** 2``), a host float handed
+    to the operator, so no copy to the card waits for it.
     """
-    b, nq, _ = query.shape
-    ns = support.shape[1]
-    r2 = torch.tensor(radius, dtype=torch.float32) ** 2
-    keff = min(k, ns)
-    order = torch.arange(ns, dtype=torch.int32, device=query.device)
-    idx = []
-    for sl in query_chunks(b, nq, ns):
-        d2 = difference_sq_dists(query[:, sl], support)
-        ranked = torch.where(d2 < r2.to(d2.device), order, ns)
-        first = torch.topk(ranked, keff, dim=-1, largest=False, sorted=True).values
-        if keff < k:
-            first = torch.cat([first, first.new_full((*first.shape[:2], k - keff), ns)], -1)
-        idx.append(torch.where(first < ns, first, first[..., :1]))
-    return torch.cat(idx, 1)
+    return pn2_search.ball_query(query, support, squared_radius(radius), k)

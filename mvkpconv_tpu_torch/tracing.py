@@ -32,10 +32,10 @@ span                   site                                            children
 ``pn2``                ``PN2SSG.forward``                              ``pn2.sa``, ``pn2.fp`` (each with its
                                                                        ``level``), ``head``
 ``pn2.sa``             ``models/pn2.py:SetAbstraction``                ``pn2.fps`` (P1), ``pn2.group`` (the
-                                                                       centroids' gather), ``pn2.ball_query``,
+                                                                       centroids' gather), ``pn2.ball_query`` (P2),
                                                                        ``pn2.group`` (the neighbours'),
                                                                        ``pn2.sa.mlp`` (the MLP and the max)
-``pn2.fp``             ``models/pn2.py:FeaturePropagation``            ``pn2.three_nn``, ``pn2.fp.mlp``
+``pn2.fp``             ``models/pn2.py:FeaturePropagation``            ``pn2.three_nn`` (P2), ``pn2.fp.mlp``
 ``sync.<where>``       a copy from host memory that waits for the      —
                        device (``sync.subsample``: the cell size in
                        ``ops/sampling.py:grid_subsample``)
@@ -145,7 +145,8 @@ _COUNTERS = None
 def _counters():
     global _COUNTERS
     if _COUNTERS is None:
-        from mvkpconv_tpu_torch.ops.kernels import fps, kpconv, pixel_select, radius_topk, segsum, unet_conv
+        from mvkpconv_tpu_torch.ops.kernels import (fps, kpconv, pixel_select, pn2_search, radius_topk, segsum,
+                                                    unet_conv)
 
         _COUNTERS = (
             ("radius_topk", radius_topk.radius_topk, "launches"),
@@ -157,6 +158,8 @@ def _counters():
             ("kpconv_fused_bwd_x", kpconv.kpconv_fused_bwd_x, "launches"),
             ("kpconv_wf", kpconv.kpconv_wf, "launches"),
             ("farthest_point_sample", fps.farthest_point_sample, "launches"),
+            ("ball_query", pn2_search.ball_query, "launches"),
+            ("three_nn", pn2_search.three_nn, "launches"),
             ("unet_conv", unet_conv.unet_conv, "launches"),
         )
     return _COUNTERS

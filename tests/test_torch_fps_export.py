@@ -21,8 +21,9 @@ serving export (``eval/export.py``, ``kind='mvpnet'``).
     a plan of no built instance or of another N.
   * ``export_inference(kind='mvpnet')``, saved and loaded by
     ``ServingModel``, at ``tests/test_export.py:119-145``'s configuration:
-    the program calls FPS as the operator once a set-abstraction level (4)
-    and K2 once, and its probabilities equal JAX's exported program's and
+    the program calls FPS and the ball query (P1, P2) as operators once a
+    set-abstraction level (4 each), the 3-NN (P2) once a propagation level
+    (4) and K2 once, and its probabilities equal JAX's exported program's and
     JAX's ``make_apply_fn``'s on the same weights within that test's
     tolerance (rtol 1e-5, atol 1e-6), and the eager model's.
 """
@@ -216,8 +217,9 @@ def test_mvpnet_export_round_trip_matches_jax(tmp_path, monkeypatch):
     assert served.kind == "mvpnet" and sorted(served.input_spec) == sorted(batch)
     calls = [str(n.target) for n in served.program.graph.nodes
              if n.op == "call_function" and str(n.target).startswith("mvkpconv.")]
-    assert sorted(calls) == ["mvkpconv.farthest_point_sample.default"] * 4 + ["mvkpconv.pixel_topk.default"] + [
-        "mvkpconv.unet_conv.default"] * 45  # the frozen UNet, one K5 a convolution site
+    assert sorted(calls) == ["mvkpconv.ball_query.default"] * 4 + ["mvkpconv.farthest_point_sample.default"] * 4 + [
+        "mvkpconv.pixel_topk.default"] + ["mvkpconv.three_nn.default"] * 4 + [
+        "mvkpconv.unet_conv.default"] * 45  # the frozen UNet, one K5 a convolution site; P2 a search
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
     got = served(tb).numpy()
     assert got.shape == (1, cfg.num_points[0], cfg.num_classes)

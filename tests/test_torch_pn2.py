@@ -38,9 +38,8 @@ from mvkpconv_tpu_torch.convert import load_jax_variables  # noqa: E402
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch  # noqa: E402
 from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D  # noqa: E402
 from mvkpconv_tpu_torch.models.pn2 import PN2SSG  # noqa: E402
-from mvkpconv_tpu_torch.ops.common import difference_sq_dists  # noqa: E402
 from mvkpconv_tpu_torch.ops.interpolate import three_nn_interpolate  # noqa: E402
-from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn  # noqa: E402
+from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn, three_nn  # noqa: E402
 from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample  # noqa: E402
 from mvkpconv_tpu_torch.ops.unproject import points_to_pixel_knn  # noqa: E402
 from mvkpconv_tpu_torch.training.init import init_parameters  # noqa: E402
@@ -161,7 +160,7 @@ def test_three_nn_interpolate_matches_jax(rng):
     want = np.asarray(jax.jit(jax_interp.three_nn_interpolate)(dense, sparse, feat))
     got = three_nn_interpolate(T(dense), T(sparse), T(feat)).numpy()
     want_idx = np.asarray(jax.jit(functools.partial(jax_nb.knn, k=3))(dense, sparse)[0])
-    got_idx = knn(T(dense), T(sparse), 3, sq_dists=difference_sq_dists)[0].numpy()
+    got_idx = three_nn(T(dense), T(sparse))[0].numpy()
     np.testing.assert_array_equal(got_idx, want_idx)
     jax_err = want - interpolate_f64(dense, sparse, feat, want_idx)
     port_err = got - interpolate_f64(dense, sparse, feat, got_idx)
