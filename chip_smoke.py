@@ -750,6 +750,14 @@ def check_k3(name, index, ns, c, gen, results, timed=True, rows32=None):
     if rows32 is None:
         rows32 = torch.randn(index.numel(), c, generator=gen, device=index.device)
     flat = (index.long() + torch.arange(index.shape[0], device=index.device)[:, None, None] * ns).reshape(-1)
+    # the card's plan against its plain version, on the ints the kernels write
+    m, n = index.shape[0] * ns, index.numel()
+    lay = k3.plan_layout(m, n)
+    card, plain = k3.segsum_plan(index, ns).cpu(), k3.segsum_plan_plain(index.cpu(), ns)
+    assert card.shape == plain.shape, f"{name}: K3's plan has {card.numel()} ints, its plain version {plain.numel()}"
+    pieces = lay["pieces"] + 4 * int(plain[lay["n_pieces"]])
+    for lo, hi in ((0, m), (lay["start"], lay["order"] + n), (lay["pieces"], pieces)):
+        assert torch.equal(card[lo:hi], plain[lo:hi]), f"{name}: K3's plan differs from its plain one in [{lo}, {hi})"
     plans = k3.IndexPlans()  # the index's plan, built by the first call
     for rows, rnd in ((rows32, False), (rows32.to(torch.bfloat16), False), (rows32, True)):
         dt = str(rows.dtype)[6:] + ("_round" if rnd else "")
@@ -1288,28 +1296,11 @@ def runs_k4(cfg):
     return bool(cfg.use_pallas_kpconv) and cfg.influence_cache == "none"
 
 
-def kernel_counters():
-    from mvkpconv_tpu_torch.ops.kernels import fps as p1
-    from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
-    from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2
-    from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
-    from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
-    from mvkpconv_tpu_torch.ops.kernels import segsum as k3
-
-    from mvkpconv_tpu_torch.ops.kernels import unet_conv as k5
-
-    return {"radius_topk": k1.radius_topk, "pixel_topk": k2.pixel_topk, "segsum": k3.segsum,
-            "segsum_plan": k3.segsum_plan,
-            "kpconv_fused_fwd": k4.kpconv_fused_fwd, "kpconv_fused_bwd_x": k4.kpconv_fused_bwd_x,
-            "kpconv_wf": k4.kpconv_wf, "farthest_point_sample": p1.farthest_point_sample,
-            "ball_query": p2.ball_query, "three_nn": p2.three_nn, "unet_conv": k5.unet_conv}
-
-
 def reset_launches():
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
-    counters["radius_topk"].device_launches = 0
+    """Zero every kernel's launch counter (``ops/_build.py``'s ``LAUNCHES``)."""
+    from mvkpconv_tpu_torch.ops import _build
+
+    _build.LAUNCHES.update(dict.fromkeys(_build.LAUNCHES, 0))
 
 
 def read_launches():
@@ -3856,9 +3847,9 @@ def check_unet_conv(dev, smi, reps=20, shape=(25, 120, 160)):
 
     # the whole UNet: K5 against cuDNN float32 (TF32 off), and the control
     with torch.no_grad():
-        before = (UNetResNet34.fused_calls, UNetResNet34.module_calls, k5.unet_conv.launches)
+        before = (UNetResNet34.fused_calls, UNetResNet34.module_calls, read_launches()["unet_conv"])
         fused = net(images)
-        launches = k5.unet_conv.launches - before[2]
+        launches = read_launches()["unet_conv"] - before[2]
         assert (UNetResNet34.fused_calls - before[0], UNetResNet34.module_calls - before[1]) == (1, 0)
         want = net._forward_modules(images)
         torch.backends.cudnn.allow_tf32 = True

@@ -102,9 +102,9 @@ class FeaturePropagation(nn.Module):
         self.mlp = SharedMLP(in_channels, mlp_channels, dtype)
 
     def forward(self, dense_xyz, sparse_xyz, dense_feature, sparse_feature):
-        """The sparse features at the dense points by ``three_nn_interpolate``
-        (its search and its weighted sum apart, for the spans), ⊕ the skip,
-        through the MLP."""
+        """The sparse features at the dense points (``three_nn``, in its own
+        span, then ``inverse_distance_interpolate``), ⊕ the skip, through the
+        MLP."""
         with tracing.span("pn2.fp", self.level):
             with tracing.span("pn2.three_nn"):
                 index, sqdist = three_nn(dense_xyz, sparse_xyz)

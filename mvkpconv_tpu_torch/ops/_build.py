@@ -6,8 +6,10 @@ started together, then one link) into
 ``mvkpconv_tpu_torch/_build/libmvkp_<hash>.so``, where the hash covers the
 sources and the flags, so a changed source rebuilds and an unchanged one is
 loaded as it is. The library is loaded with ``ctypes``; every pointer and
-the stream pass as ``c_void_p``. Nothing here runs on import: the wrappers
-call :func:`library` only when they are handed a CUDA tensor. A missing
+the stream pass as ``c_void_p``. Nothing here runs on import: the
+operators' CUDA kernels call :func:`launch`, the one place that launches a
+kernel and counts its launches (:data:`LAUNCHES`), only when they are
+handed CUDA tensors, and it loads the library on its first call. A missing
 ``nvcc`` or a failed build raises. A measurement tool may ask for preprocessor
 symbols (``library(defines=("MVKP_CYCLES",))``: the KPConv kernels' cycle
 counters and the segment sum's counts) before anything else has loaded the library.
@@ -23,6 +25,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -32,45 +36,53 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# symbol: (launch counters, argument types). A kernel launch's counters are
+# {counter: what one launch adds to it}; its first counter names the
+# operator mvkpconv::<counter> whose CUDA kernel makes the launch, and its
+# last argument is the stream, which launch() passes. A host call has none.
 SIGNATURES = {
-    # query, support, out, packed, boxes, super_boxes, B, Nq, Ns, r2, k, stream
-    "mvkp_radius_topk": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # query, support, out, packed, boxes, super_boxes, B, Nq, Ns, r2, k, stream;
+    # a call is two device launches: the box pre-pass and the search
+    "mvkp_radius_topk": ({"radius_topk": 1, "radius_topk_device": 2},
+                         (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P)),
     # points, image_xyz, image_is_bf16, iu0, iv0, out,
     # B, N, V, H, W, window, k, stream
-    "mvkp_pixel_topk": (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "mvkp_pixel_topk": ({"pixel_topk": 1}, (_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # B, rows_per_b, Ns, C, out[3] (plan ints, plan scratch ints, sum scratch words)
-    "mvkp_segsum_sizes": (_I, _I, _I, _I, _P),
+    "mvkp_segsum_sizes": (None, (_I, _I, _I, _I, _P)),
     # index, plan, scratch, B, rows_per_b, Ns, stream
-    "mvkp_segsum_plan": (_P, _P, _P, _I, _I, _I, _P),
+    "mvkp_segsum_plan": ({"segsum_plan": 1}, (_P, _P, _P, _I, _I, _I, _P)),
     # rows, rows_is_bf16, round_bf16, plan, out, scratch, B, rows_per_b, Ns, C, stream
-    "mvkp_segsum_sum": (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mvkp_segsum_sum": ({"segsum": 1}, (_P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P)),
     # rel, x, x_is_bf16, ldx, kp, W, out, Q, K, M, Cin, Cout, extent, stream
-    "mvkp_kpconv_fwd": (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "mvkp_kpconv_fwd": ({"kpconv_fused_fwd": 1}, (_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)),
     # queries per block (0: planned)
-    "mvkp_kpconv_fwd_tune": (_I,),
+    "mvkp_kpconv_fwd_tune": (None, (_I,)),
     # queries per block of bwd_x, 16 x the queries per warp of wf (0: planned)
-    "mvkp_kpconv_bwd_tune": (_I,),
+    "mvkp_kpconv_bwd_tune": (None, (_I,)),
     # rel, g, kp, W, dx, dx_is_bf16, Q, K, M, Cin, Cout, extent, stream
-    "mvkp_kpconv_bwd_x": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P),
+    "mvkp_kpconv_bwd_x": ({"kpconv_fused_bwd_x": 1}, (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P)),
     # rel, x, x_is_bf16, ldx, kp, wf, Q, K, M, Cin, extent, stream
-    "mvkp_kpconv_wf": (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P),
+    "mvkp_kpconv_wf": ({"kpconv_wf": 1}, (_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _F, _P)),
     # points, mask (or NULL), out, scratch (NULL unless the plan's k is 0), B, N, S,
     # the plan's clusters, threads and k (ops/kernels/fps.py plan), stream
-    "mvkp_fps": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "mvkp_fps": ({"farthest_point_sample": 1}, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     # query, support, out, B, Nq, Ns, r2, k, the plan's warps a CTA and tile (pn2_search.py), stream
-    "mvkp_ball_query": (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P),
+    "mvkp_ball_query": ({"ball_query": 1}, (_P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P)),
     # query, support, idx, d2, B, Nq, Ns, the plan's threads a CTA and tile, stream
-    "mvkp_three_nn": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "mvkp_three_nn": ({"three_nn": 1}, (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
     # x, x2, w, bias, bn weight, bias, mean, var, residual, out (NULL where absent),
     # B, H, W, C1, C2, OH, OW, Cout, KH, KW, stride, pad, transposed, relu, eps,
     # partial (NULL unless splits > 1), splits, stream
-    "mvkp_unet_conv": (_P,) * 10 + (_I,) * 14 + (_F, _P, _I, _I, _P),
+    "mvkp_unet_conv": ({"unet_conv": 1}, (_P,) * 10 + (_I,) * 14 + (_F, _P, _I, _I, _P)),
     # out[6], out[7], out[4], out[6] on the host; only in a build with MVKP_CYCLES
-    "mvkp_kpconv_fwd_cycles": (_P,),
-    "mvkp_kpconv_bwd_x_cycles": (_P,),
-    "mvkp_kpconv_wf_cycles": (_P,),
-    "mvkp_segsum_counts": (_P,),
+    "mvkp_kpconv_fwd_cycles": (None, (_P,)),
+    "mvkp_kpconv_bwd_x_cycles": (None, (_P,)),
+    "mvkp_kpconv_wf_cycles": (None, (_P,)),
+    "mvkp_segsum_counts": (None, (_P,)),
 }
+# the launch counters, each the launches made so far (tracing.launch_counts)
+LAUNCHES = {name: 0 for counters, _ in SIGNATURES.values() if counters for name in counters}
 
 _LIB = None
 
@@ -152,7 +164,7 @@ def library(defines=()) -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build(defines)))
-        for name, argtypes in SIGNATURES.items():
+        for name, (_, argtypes) in SIGNATURES.items():
             fn = getattr(lib, name, None)  # the cycle counters exist only with their define
             if fn is not None:
                 fn.argtypes = list(argtypes)
@@ -172,3 +184,16 @@ def check_launch(name: str, rc: int) -> None:
         except OSError:
             pass
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc} {msg}")
+
+
+def launch(symbol: str, device: torch.device, *args, count: int = 1) -> None:
+    """Launch the kernel ``symbol`` of :data:`SIGNATURES` with ``args`` on
+    ``device``'s current stream (passed as the last argument), raise on a
+    refused launch, and add ``count`` launches to its counters. Every launch
+    of the package's kernels passes here."""
+    lib = _LIB if _LIB is not None else library()
+    with torch.cuda.device(device):
+        rc = getattr(lib, symbol)(*args, torch.cuda.current_stream(device).cuda_stream)
+    check_launch(symbol, rc)
+    for name, n in SIGNATURES[symbol][0].items():
+        LAUNCHES[name] += n * count

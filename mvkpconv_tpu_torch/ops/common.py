@@ -38,6 +38,15 @@ def check_tensor(name: str, t: torch.Tensor, dtype, ndim: int, device=None):
         raise ValueError(f"{name}: on {t.device}, expected {device}")
 
 
+def check_devices(name: str, *tensors) -> None:
+    """The kernel wrappers' device rule: every tensor (None skipped) on the
+    CPU, where the operator runs its plain version, or every one on a CUDA
+    device, where it runs its kernel; anything else raises."""
+    kinds = {t.device.type for t in tensors if t is not None}
+    if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
+        raise ValueError(f"{name}: unsupported devices {sorted(kinds)}")
+
+
 def pairwise_sq_dists(query: torch.Tensor, support: torch.Tensor) -> torch.Tensor:
     """(B, Nq, Ns) f32 squared distances of (B, Nq, 3) and (B, Ns, 3)
     points in the JAX package's expansion form ‖q‖² − 2 q·s + ‖s‖², clamped

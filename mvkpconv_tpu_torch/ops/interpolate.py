@@ -9,7 +9,6 @@ from __future__ import annotations
 import torch
 
 from mvkpconv_tpu_torch.ops.gather import group_points
-from mvkpconv_tpu_torch.ops.neighbors import three_nn
 
 
 def feature_interpolate(
@@ -23,25 +22,16 @@ def feature_interpolate(
 EPS = 1e-10  # the reference's floor on d² (pn2/modules.py:135-142)
 
 
-def three_nn_interpolate(
-    query_xyz: torch.Tensor, key_xyz: torch.Tensor, key_features: torch.Tensor
-) -> torch.Tensor:
-    """Key features at the query points: weights 1/max(d², EPS) over the 3
-    nearest keys, normalized (the reference's FeatureInterpolator). The
-    search is ``neighbors.three_nn`` (kernel P2 on the card), d² the
-    difference form of the published CUDA op (``common.difference_sq_dists``;
-    the JAX package takes the expansion form, whose error at room
-    coordinates moves the weights of near keys): a query that coincides
-    with a key gets 0 there, and so weight 1/EPS."""
-    index, sqdist = three_nn(query_xyz, key_xyz)
-    return inverse_distance_interpolate(key_features, index, sqdist)
-
-
 def inverse_distance_interpolate(
     key_features: torch.Tensor, index: torch.Tensor, sqdist: torch.Tensor
 ) -> torch.Tensor:
-    """The weighted sum of :func:`three_nn_interpolate` given its search:
-    (B, Nq, 3) key indices and their d² → (B, Nq, C)."""
+    """Key features at the query points, given the query's 3 nearest keys
+    (``neighbors.three_nn``: (B, Nq, 3) indices and their d²): weights
+    1/max(d², EPS), normalized (the reference's FeatureInterpolator) → (B,
+    Nq, C). d² is the difference form of the published CUDA op
+    (``common.difference_sq_dists``; the JAX package takes the expansion
+    form, whose error at room coordinates moves the weights of near keys): a
+    query that coincides with a key gets 0 there, and so weight 1/EPS."""
     inv = 1.0 / sqdist.clamp(min=EPS)
     weight = inv / ((inv[..., 0:1] + inv[..., 1:2]) + inv[..., 2:3])
     return feature_interpolate(key_features, index, weight.to(key_features.dtype))

@@ -1,7 +1,10 @@
 """Wrappers of the hand-written CUDA kernels, each with its plain version.
 
-A wrapper takes its plain PyTorch version for tensors on the CPU and
-launches its kernel for tensors on a CUDA device (or raises); it never
-falls back from one to the other. ``launches`` on each wrapper counts the
-kernel launches.
+Each kernel is a ``torch.library`` operator ``mvkpconv::<name>``: its CPU
+kernel is the plain PyTorch version, its CUDA kernel launches the
+hand-written kernel through ``ops/_build.py:launch`` (which counts the
+launches: ``tracing.launch_counts``), and its fake kernel gives the
+output's shape. A wrapper takes tensors all on the CPU or all on a CUDA
+device (``ops/common.py:check_devices``) and never falls back from one to
+the other.
 """

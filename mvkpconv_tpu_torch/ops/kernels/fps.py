@@ -1,4 +1,4 @@
-"""P1: farthest point sampling — wrapper, plain version, plan, launch count.
+"""P1: farthest point sampling — wrapper, plain version, plan, operator.
 
 A port-only kernel: the JAX package's FPS (``mvkpconv_tpu/ops/sampling.py:
 farthest_point_sample``) is a ``lax.fori_loop``, no Pallas kernel. Contract:
@@ -39,7 +39,8 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 
 CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
 MAX_THREADS = 1024
@@ -159,20 +160,11 @@ def launch(points: torch.Tensor, num_samples: int, mask: Optional[torch.Tensor],
     b, n, _ = points.shape
     pl = pl or plan(n)
     check_plan(pl, n)
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
     out = torch.empty((b, num_samples), dtype=torch.int32, device=points.device)
     scratch = torch.empty((b, n), dtype=torch.float32, device=points.device) if pl.points == 0 else None
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        rc = lib.mvkp_fps(
-            points.data_ptr(), None if mask is None else mask.data_ptr(), out.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), b, n, num_samples,
-            pl.clusters, pl.threads, pl.points, stream,
-        )
-    _build.check_launch("farthest_point_sample", rc)
-    farthest_point_sample.launches += 1
+    _build.launch("mvkp_fps", points.device, points.data_ptr(), None if mask is None else mask.data_ptr(),
+                  out.data_ptr(), None if scratch is None else scratch.data_ptr(), b, n, num_samples,
+                  pl.clusters, pl.threads, pl.points)
     return out
 
 
@@ -196,9 +188,5 @@ def farthest_point_sample(
     """Farthest point sampling of (B, N, 3) points → (B, num_samples) int32:
     the operator ``mvkpconv::farthest_point_sample``, the plain version on
     CPU tensors, the kernel on CUDA tensors (any other device raises)."""
-    if points.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"farthest_point_sample: unsupported device {points.device}")
+    check_devices("farthest_point_sample", points, mask)
     return fps_op(points, int(num_samples), mask)
-
-
-farthest_point_sample.launches = 0  # calls that reached the kernel

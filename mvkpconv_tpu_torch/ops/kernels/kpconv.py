@@ -1,5 +1,5 @@
 """K4: fused rigid KPConv after the gather — wrappers, plain versions,
-launch counts and the autograd Function.
+operators and the autograd Function.
 
 Counterpart of ``mvkpconv_tpu/ops/pallas/kpconv.py:kpconv_fused`` (linear
 influence, sum aggregation). With ``neighb_rel`` (B, N, K, 3) f32 the
@@ -18,8 +18,8 @@ kernel point). Shadow neighbors (rel ≈ 1e6, zero feature row) get influence
 exactly 0. Nothing of size (B, N, K, M) is kept: the backward recomputes the
 influence from the forward's inputs.
 
-Three kernels (``csrc/kpconv.cu``), each with its plain version and its
-launch count: :func:`kpconv_fused_fwd`, :func:`kpconv_fused_bwd_x` (the
+Three kernels (``csrc/kpconv.cu``), each with its plain version:
+:func:`kpconv_fused_fwd`, :func:`kpconv_fused_bwd_x` (the
 cotangent of ``nx``: an f32 sum, written as f32 or, with
 ``out_dtype=torch.bfloat16``, rounded once to bf16 by the kernel itself, which
 is what a bf16 ``nx`` takes) and :func:`kpconv_wf` (``wf`` on its own; the weight
@@ -29,19 +29,18 @@ JAX package leaves it to XLA). :class:`KPConvFused` ties them into autograd;
 for one) and it raises if either requires one. :func:`kpconv_fused_plain`
 gives all four through autograd.
 
-CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise. The forward is the ``torch.library`` operator
-``mvkpconv::kpconv_fused_fwd`` (CPU kernel: the plain version; CUDA kernel:
-``csrc/kpconv.cu``; a fake kernel for ``torch.export``); ``bwd_x`` and
-``wf`` run only in a backward, which no exported program holds, and stay
-plain calls.
+Each is a ``torch.library`` operator (``mvkpconv::kpconv_fused_fwd``,
+``mvkpconv::kpconv_fused_bwd_x``, ``mvkpconv::kpconv_wf``) whose CPU kernel
+is its plain version, whose CUDA kernel launches ``csrc/kpconv.cu`` and
+whose fake kernel gives the output's shape.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 
 MAX_K = 128  # csrc/kpconv.cu kMaxK
 MAX_M = 32  # csrc/kpconv.cu kMaxM
@@ -126,47 +125,72 @@ def check_args(neighb_rel, nx, kernel_pts, weights2d=None, g=None, out_dtype=Non
         raise ValueError(f"kpconv_fused: too large (B·N={q}, K={k}, M={m}, Cin={cin})")
 
 
-def _on_cpu(*tensors) -> bool:
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds != {"cuda"}:
-        raise ValueError(f"kpconv_fused: unsupported devices {sorted(kinds)}")
-    return False
-
-
 torch.library.define(
     "mvkpconv::kpconv_fused_fwd",
     "(Tensor neighb_rel, Tensor nx, Tensor kernel_pts, Tensor weights2d, float kp_extent) -> Tensor",
 )
+torch.library.define(
+    "mvkpconv::kpconv_fused_bwd_x",
+    "(Tensor neighb_rel, Tensor g, Tensor kernel_pts, Tensor weights2d, float kp_extent, "
+    "ScalarType? out_dtype) -> Tensor",
+)
+torch.library.define(
+    "mvkpconv::kpconv_wf", "(Tensor neighb_rel, Tensor nx, Tensor kernel_pts, float kp_extent) -> Tensor")
 kpconv_fused_fwd_op = torch.ops.mvkpconv.kpconv_fused_fwd.default
+kpconv_fused_bwd_x_op = torch.ops.mvkpconv.kpconv_fused_bwd_x.default
+kpconv_wf_op = torch.ops.mvkpconv.kpconv_wf.default
 
 
 @torch.library.impl("mvkpconv::kpconv_fused_fwd", "cuda")
 def _kpconv_fused_fwd_cuda(neighb_rel, nx, kernel_pts, weights2d, kp_extent):
     """The CUDA kernel of ``mvkpconv::kpconv_fused_fwd``."""
     check_args(neighb_rel, nx, kernel_pts, weights2d)
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
     b, n, k, _ = neighb_rel.shape
     m, cout = kernel_pts.shape[0], weights2d.shape[1]
     x, ldx = _rows(nx)
     out = torch.empty((b, n, cout), dtype=torch.float32, device=nx.device)
     if b * n:
-        with torch.cuda.device(nx.device):
-            rc = lib.mvkp_kpconv_fwd(
-                neighb_rel.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), ldx,
-                kernel_pts.data_ptr(), weights2d.data_ptr(), out.data_ptr(),
-                b * n, k, m, x.shape[3], cout, float(kp_extent),
-                torch.cuda.current_stream(nx.device).cuda_stream,
-            )
-        _build.check_launch("kpconv_fused_fwd", rc)
-        kpconv_fused_fwd.launches += 1
+        _build.launch("mvkp_kpconv_fwd", nx.device, neighb_rel.data_ptr(), x.data_ptr(),
+                      int(x.dtype == torch.bfloat16), ldx, kernel_pts.data_ptr(), weights2d.data_ptr(),
+                      out.data_ptr(), b * n, k, m, x.shape[3], cout, float(kp_extent))
     return out
 
 
+@torch.library.impl("mvkpconv::kpconv_fused_bwd_x", "cuda")
+def _kpconv_fused_bwd_x_cuda(neighb_rel, g, kernel_pts, weights2d, kp_extent, out_dtype):
+    """The CUDA kernel of ``mvkpconv::kpconv_fused_bwd_x``."""
+    check_args(neighb_rel, None, kernel_pts, weights2d, g, out_dtype)
+    out_dtype = out_dtype or torch.float32
+    b, n, k, _ = neighb_rel.shape
+    m, cout = kernel_pts.shape[0], weights2d.shape[1]
+    cin = weights2d.shape[0] // m
+    dx = torch.empty((b, n, k, cin), dtype=out_dtype, device=g.device)
+    if b * n:
+        _build.launch("mvkp_kpconv_bwd_x", g.device, neighb_rel.data_ptr(), g.data_ptr(), kernel_pts.data_ptr(),
+                      weights2d.data_ptr(), dx.data_ptr(), int(out_dtype == torch.bfloat16),
+                      b * n, k, m, cin, cout, float(kp_extent))
+    return dx
+
+
+@torch.library.impl("mvkpconv::kpconv_wf", "cuda")
+def _kpconv_wf_cuda(neighb_rel, nx, kernel_pts, kp_extent):
+    """The CUDA kernel of ``mvkpconv::kpconv_wf``."""
+    check_args(neighb_rel, nx, kernel_pts)
+    b, n, k, _ = neighb_rel.shape
+    m = kernel_pts.shape[0]
+    x, ldx = _rows(nx)
+    cin = x.shape[3]
+    wf = torch.empty((b, n, m * cin), dtype=torch.float32, device=nx.device)
+    if b * n:
+        _build.launch("mvkp_kpconv_wf", nx.device, neighb_rel.data_ptr(), x.data_ptr(),
+                      int(x.dtype == torch.bfloat16), ldx, kernel_pts.data_ptr(), wf.data_ptr(),
+                      b * n, k, m, cin, float(kp_extent))
+    return wf
+
+
 torch.library.impl("mvkpconv::kpconv_fused_fwd", "cpu", kpconv_fused_plain)
+torch.library.impl("mvkpconv::kpconv_fused_bwd_x", "cpu", kpconv_fused_bwd_x_plain)
+torch.library.impl("mvkpconv::kpconv_wf", "cpu", kpconv_wf_plain)
 
 
 @torch.library.register_fake("mvkpconv::kpconv_fused_fwd")
@@ -175,10 +199,22 @@ def _kpconv_fused_fwd_fake(neighb_rel, nx, kernel_pts, weights2d, kp_extent):
     return nx.new_empty((nx.shape[0], nx.shape[1], weights2d.shape[1]), dtype=dtype)
 
 
+@torch.library.register_fake("mvkpconv::kpconv_fused_bwd_x")
+def _kpconv_fused_bwd_x_fake(neighb_rel, g, kernel_pts, weights2d, kp_extent, out_dtype):
+    cin = weights2d.shape[0] // kernel_pts.shape[0]
+    return g.new_empty((*neighb_rel.shape[:3], cin), dtype=out_dtype or torch.promote_types(neighb_rel.dtype, g.dtype))
+
+
+@torch.library.register_fake("mvkpconv::kpconv_wf")
+def _kpconv_wf_fake(neighb_rel, nx, kernel_pts, kp_extent):
+    dtype = torch.promote_types(neighb_rel.dtype, kernel_pts.dtype)
+    return nx.new_empty((*nx.shape[:2], kernel_pts.shape[0] * nx.shape[3]), dtype=dtype)
+
+
 def kpconv_fused_fwd(neighb_rel, nx, kernel_pts, weights2d, kp_extent: float) -> torch.Tensor:
     """The fused forward, (B, N, Cout) f32: the operator
     ``mvkpconv::kpconv_fused_fwd``."""
-    _on_cpu(neighb_rel, nx, kernel_pts, weights2d)  # raises on mixed or other devices
+    check_devices("kpconv_fused", neighb_rel, nx, kernel_pts, weights2d)
     return kpconv_fused_fwd_op(neighb_rel, nx, kernel_pts, weights2d, float(kp_extent))
 
 
@@ -186,59 +222,17 @@ def kpconv_fused_bwd_x(neighb_rel, g, kernel_pts, weights2d, kp_extent: float,
                        out_dtype=None) -> torch.Tensor:
     """The cotangent of ``nx`` for the output cotangent ``g`` (B, N, Cout):
     (B, N, K, Cin), f32 unless ``out_dtype`` says bf16 (the f32 sum rounded
-    to nearest even once, bit for bit what ``.to(torch.bfloat16)`` gives)."""
-    if _on_cpu(neighb_rel, g, kernel_pts, weights2d):
-        return kpconv_fused_bwd_x_plain(neighb_rel, g, kernel_pts, weights2d, kp_extent, out_dtype)
-    check_args(neighb_rel, None, kernel_pts, weights2d, g, out_dtype)
-    out_dtype = out_dtype or torch.float32
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
-    b, n, k, _ = neighb_rel.shape
-    m, cout = kernel_pts.shape[0], weights2d.shape[1]
-    cin = weights2d.shape[0] // m
-    dx = torch.empty((b, n, k, cin), dtype=out_dtype, device=g.device)
-    if b * n:
-        with torch.cuda.device(g.device):
-            rc = lib.mvkp_kpconv_bwd_x(
-                neighb_rel.data_ptr(), g.data_ptr(), kernel_pts.data_ptr(),
-                weights2d.data_ptr(), dx.data_ptr(), int(out_dtype == torch.bfloat16),
-                b * n, k, m, cin, cout, float(kp_extent),
-                torch.cuda.current_stream(g.device).cuda_stream,
-            )
-        _build.check_launch("kpconv_fused_bwd_x", rc)
-        kpconv_fused_bwd_x.launches += 1
-    return dx
+    to nearest even once, bit for bit what ``.to(torch.bfloat16)`` gives):
+    the operator ``mvkpconv::kpconv_fused_bwd_x``."""
+    check_devices("kpconv_fused", neighb_rel, g, kernel_pts, weights2d)
+    return kpconv_fused_bwd_x_op(neighb_rel, g, kernel_pts, weights2d, float(kp_extent), out_dtype)
 
 
 def kpconv_wf(neighb_rel, nx, kernel_pts, kp_extent: float) -> torch.Tensor:
-    """The per-kernel-point weighted neighbor sums, (B, N, M·Cin) f32."""
-    if _on_cpu(neighb_rel, nx, kernel_pts):
-        return kpconv_wf_plain(neighb_rel, nx, kernel_pts, kp_extent)
-    check_args(neighb_rel, nx, kernel_pts)
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
-    b, n, k, _ = neighb_rel.shape
-    m = kernel_pts.shape[0]
-    x, ldx = _rows(nx)
-    cin = x.shape[3]
-    wf = torch.empty((b, n, m * cin), dtype=torch.float32, device=nx.device)
-    if b * n:
-        with torch.cuda.device(nx.device):
-            rc = lib.mvkp_kpconv_wf(
-                neighb_rel.data_ptr(), x.data_ptr(), int(x.dtype == torch.bfloat16), ldx,
-                kernel_pts.data_ptr(), wf.data_ptr(), b * n, k, m, cin, float(kp_extent),
-                torch.cuda.current_stream(nx.device).cuda_stream,
-            )
-        _build.check_launch("kpconv_wf", rc)
-        kpconv_wf.launches += 1
-    return wf
-
-
-kpconv_fused_fwd.launches = 0
-kpconv_fused_bwd_x.launches = 0
-kpconv_wf.launches = 0
+    """The per-kernel-point weighted neighbor sums, (B, N, M·Cin) f32: the
+    operator ``mvkpconv::kpconv_wf``."""
+    check_devices("kpconv_fused", neighb_rel, nx, kernel_pts)
+    return kpconv_wf_op(neighb_rel, nx, kernel_pts, float(kp_extent))
 
 
 def weight_gradient(neighb_rel, nx, kernel_pts, g, kp_extent: float) -> torch.Tensor:

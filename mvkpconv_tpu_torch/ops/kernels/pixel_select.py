@@ -1,4 +1,4 @@
-"""K2: projective pixel k-NN selection — wrapper, plain version, launch count.
+"""K2: projective pixel k-NN selection — wrapper, plain version, operator.
 
 Counterpart of ``mvkpconv_tpu/ops/pallas/pixel_select.py:pixel_topk_indices``
 without its 2⁻¹⁴ distance quantization. For each point, the k nearest of its
@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 from mvkpconv_tpu_torch.ops.gather import group_points
 
 K_MAX = 32  # the kernel's largest list capacity
@@ -92,19 +93,10 @@ def _pixel_topk_cuda(points, image_xyz, iu0, iv0, window, k):
     dev = points.device
     b, v, h, w, _ = image_xyz.shape
     n = points.shape[1]
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
     out = torch.empty((b, n, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.mvkp_pixel_topk(
-            points.data_ptr(), image_xyz.data_ptr(),
-            int(image_xyz.dtype == torch.bfloat16), iu0.data_ptr(),
-            iv0.data_ptr(), out.data_ptr(), b, n, v, h, w, window, k, stream,
-        )
-    _build.check_launch("pixel_topk", rc)
-    pixel_topk.launches += 1
+    _build.launch("mvkp_pixel_topk", dev, points.data_ptr(), image_xyz.data_ptr(),
+                  int(image_xyz.dtype == torch.bfloat16), iu0.data_ptr(), iv0.data_ptr(), out.data_ptr(),
+                  b, n, v, h, w, window, k)
     return out
 
 
@@ -136,10 +128,5 @@ def pixel_topk(
     v = image_xyz.shape[1]
     if not 1 <= k <= v * window * window:
         raise ValueError(f"pixel_topk: k={k} outside [1, V·window²={v * window * window}]")
-    if points.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"pixel_topk: unsupported device {points.device}")
+    check_devices("pixel_topk", points, image_xyz, iu0, iv0)
     return pixel_topk_op(points, image_xyz, iu0, iv0, int(window), int(k))
-
-
-
-pixel_topk.launches = 0

@@ -1,4 +1,4 @@
-"""P2: PointNet++'s ball query and 3-NN — wrappers, plain versions, plans, launch counts.
+"""P2: PointNet++'s ball query and 3-NN — wrappers, plain versions, plans, operators.
 
 Port-only kernels, as P1 is: the JAX package's ``ball_query`` and ``knn``
 (``mvkpconv_tpu/ops/neighbors.py``) reach no Pallas kernel. d² is the
@@ -34,7 +34,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor, difference_sq_dists, query_chunks
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor, difference_sq_dists, query_chunks
 
 MAX_TILE = 1024  # supports a shared-memory tile holds (16 bytes each): csrc/pn2_search.cu kMaxTile
 SMS = 132  # the H100's streaming multiprocessors
@@ -131,18 +132,12 @@ def launch_ball_query(query: torch.Tensor, support: torch.Tensor, r2: float, k: 
     check_args(query, support)
     if k < 1 or query.shape[0] * query.shape[1] * k >= 2**31:
         raise ValueError(f"ball_query: unsupported k={k} for {tuple(query.shape)}")
-    from mvkpconv_tpu_torch.ops import _build
-
     b, nq, _ = query.shape
     ns = support.shape[1]
     pl = ball_query_plan(b, nq, ns)
     out = torch.empty((b, nq, k), dtype=torch.int32, device=query.device)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = _build.library().mvkp_ball_query(query.data_ptr(), support.data_ptr(), out.data_ptr(), b, nq, ns,
-                                              r2, k, pl.queries, pl.tile, stream)
-    _build.check_launch("ball_query", rc)
-    ball_query.launches += 1
+    _build.launch("mvkp_ball_query", query.device, query.data_ptr(), support.data_ptr(), out.data_ptr(),
+                  b, nq, ns, r2, k, pl.queries, pl.tile)
     return out
 
 
@@ -151,19 +146,13 @@ def launch_three_nn(query: torch.Tensor, support: torch.Tensor) -> Tuple[torch.T
     check_args(query, support)
     if support.shape[1] < 1:
         raise ValueError("three_nn: no supports")
-    from mvkpconv_tpu_torch.ops import _build
-
     b, nq, _ = query.shape
     ns = support.shape[1]
     pl = three_nn_plan(b, nq, ns)
     idx = torch.empty((b, nq, 3), dtype=torch.int32, device=query.device)
     d2 = torch.empty((b, nq, 3), dtype=torch.float32, device=query.device)
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = _build.library().mvkp_three_nn(query.data_ptr(), support.data_ptr(), idx.data_ptr(), d2.data_ptr(),
-                                            b, nq, ns, pl.queries, pl.tile, stream)
-    _build.check_launch("three_nn", rc)
-    three_nn.launches += 1
+    _build.launch("mvkp_three_nn", query.device, query.data_ptr(), support.data_ptr(), idx.data_ptr(),
+                  d2.data_ptr(), b, nq, ns, pl.queries, pl.tile)
     return idx, d2
 
 
@@ -194,16 +183,11 @@ def _three_nn_fake(query, support):
     return query.new_empty(shape, dtype=torch.int32), query.new_empty(shape, dtype=torch.float32)
 
 
-def _check_device(t: torch.Tensor, name: str) -> None:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-
-
 def ball_query(query: torch.Tensor, support: torch.Tensor, r2: float, k: int) -> torch.Tensor:
     """The first ``k`` supports with d² < ``r2`` of each query, in index order
     (see the module's contract): the operator ``mvkpconv::ball_query``, the
     plain version on CPU tensors, the kernel on CUDA tensors."""
-    _check_device(query, "ball_query")
+    check_devices("ball_query", query, support)
     return ball_query_op(query, support, float(r2), int(k))
 
 
@@ -212,9 +196,5 @@ def three_nn(query: torch.Tensor, support: torch.Tensor) -> Tuple[torch.Tensor, 
     to the lower index (see the module's contract): the operator
     ``mvkpconv::three_nn``, the plain version on CPU tensors, the kernel on
     CUDA tensors."""
-    _check_device(query, "three_nn")
+    check_devices("three_nn", query, support)
     return three_nn_op(query, support)
-
-
-ball_query.launches = 0  # calls that reached the kernel
-three_nn.launches = 0

@@ -1,4 +1,4 @@
-"""K1: exact radius top-k selection — wrapper, plain version, launch count.
+"""K1: exact radius top-k selection — wrapper, plain version, operator.
 
 Counterpart of ``mvkpconv_tpu/ops/pallas/radius_topk.py:binmin_radius_topk``
 without its approximations (bins, 2⁻⁹ distance keys, the Ns ≤ 2¹⁴ limit).
@@ -31,7 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 
 K_MAX = 128  # the kernel's largest list capacity
 GROUP = 32  # csrc/radius_topk.cu kGroup: supports per box
@@ -131,9 +132,6 @@ def _radius_topk_cuda(query, support, radius, k):
     check_args(query, support, k)
     b, nq, _ = query.shape
     ns = support.shape[1]
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
     out = torch.empty((b, nq, k), dtype=torch.int32, device=query.device)
     # scratch of the box pre-pass, in float4s: the packed supports, a (lo, hi)
     # pair per group and per super-group
@@ -142,16 +140,8 @@ def _radius_topk_cuda(query, support, radius, k):
     scratch = torch.empty((b * (ns + 2 * groups + 2 * supers), 4), dtype=torch.float32,
                           device=query.device)
     boxes, super_boxes = scratch[b * ns:], scratch[b * (ns + 2 * groups):]
-    with torch.cuda.device(query.device):
-        stream = torch.cuda.current_stream(query.device).cuda_stream
-        rc = lib.mvkp_radius_topk(
-            query.data_ptr(), support.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), boxes.data_ptr(), super_boxes.data_ptr(),
-            b, nq, ns, squared_radius(radius), k, stream,
-        )
-    _build.check_launch("radius_topk", rc)
-    radius_topk.launches += 1
-    radius_topk.device_launches += 2
+    _build.launch("mvkp_radius_topk", query.device, query.data_ptr(), support.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), boxes.data_ptr(), super_boxes.data_ptr(), b, nq, ns, squared_radius(radius), k)
     return out
 
 
@@ -169,11 +159,5 @@ def radius_topk(
     """Up-to-k nearest supports within ``radius``, ascending, shadow = Ns:
     the operator ``mvkpconv::radius_topk``, the plain version on CPU
     tensors, the kernel on CUDA tensors (any other device raises)."""
-    if query.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"radius_topk: unsupported device {query.device}")
+    check_devices("radius_topk", query, support)
     return radius_topk_op(query, support, float(radius), int(k))
-
-
-
-radius_topk.launches = 0  # calls that reached the kernel
-radius_topk.device_launches = 0  # kernels launched: the box pre-pass and the search

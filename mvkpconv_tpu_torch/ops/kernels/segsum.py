@@ -1,4 +1,4 @@
-"""K3: segment sum of gather cotangent rows — wrapper, plain version, launch count.
+"""K3: segment sum of gather cotangent rows — wrappers, plain versions, operators.
 
 Counterpart of ``mvkpconv_tpu/ops/pallas/segsum.py:banded_window_segsum`` as
 ``mvkpconv_tpu/ops/gather.py:_transpose_banded`` drives it, without its TPU
@@ -27,8 +27,11 @@ target with more than ``LONG`` rows is summed in pieces of ``LONG`` rows
 whose partial rows the last piece adds up, in piece order. Nothing depends on
 the order in which atomics land: the same inputs give the same bits.
 
-CPU tensors take :func:`segsum_plain`; CUDA tensors launch
-``csrc/segsum.cu`` or raise.
+Both steps are ``torch.library`` operators: ``mvkpconv::segsum_plan``
+(CPU kernel :func:`segsum_plan_plain`, the plan's layout in PyTorch) and
+``mvkpconv::segsum``, which takes the plan as a tensor (CPU kernel
+:func:`segsum_plain`, which needs no plan); their CUDA kernels launch
+``csrc/segsum.cu`` and their fake kernels give the output's shape.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import ctypes
 
 import torch
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 
 LONG = 256  # csrc/segsum.cu kLong: most rows one warp sums
 GROUP = 8  # csrc/segsum.cu kGroup: most pieces of a row one warp sums
@@ -56,6 +60,48 @@ def segsum_plain(rows: torch.Tensor, index: torch.Tensor, ns: int, round_bf16: b
     return out.index_add_(0, flat, rows.reshape(-1, c).float()).reshape(b, ns, c)
 
 
+def plan_layout(m: int, n: int):
+    """Offsets in the int32 plan of ``m`` targets and ``n`` rows
+    (``csrc/segsum.cu`` ``layout``): counts at 0, then ``start`` (m + 1 CSR
+    offsets), ``n_pieces``, ``order`` (n row numbers), ``pieces`` (int4s),
+    and the plan's ``total`` ints."""
+    max_pieces = 2 * (n // LONG) + 2
+    start = -(-m // 4) * 4
+    order = start + m + 2
+    pieces = -(-(order + n) // 4) * 4
+    return {"start": start, "n_pieces": start + m + 1, "order": order, "pieces": pieces,
+            "total": pieces + 4 * max_pieces}
+
+
+def segsum_plan_plain(index: torch.Tensor, ns: int) -> torch.Tensor:
+    """Plain PyTorch version of the plan: for targets b·Ns + t (rows whose t
+    is out of range last), each target's rows counted, their CSR offsets,
+    the rows' numbers grouped by target in row order (a stable sort), and a
+    {target, piece, first piece's number, pieces} entry for each piece of
+    ``LONG`` rows of a target of more than ``LONG``. Ints the kernels leave
+    unwritten are 0 here."""
+    b = index.shape[0]
+    m = b * ns
+    t = index.reshape(b, -1).to(torch.int64)
+    base = torch.arange(b, dtype=torch.int64, device=index.device)[:, None] * ns
+    key = torch.where((t >= 0) & (t < ns), t + base, m).reshape(-1)
+    counts = torch.bincount(key, minlength=m + 1)[:m]
+    long = torch.nonzero(counts > LONG)[:, 0]
+    per = -(-counts[long] // LONG)
+    first = torch.cumsum(per, 0) - per
+    piece = torch.arange(int(per.sum()), device=index.device) - first.repeat_interleave(per)
+    pieces = torch.stack([long.repeat_interleave(per), piece, first.repeat_interleave(per),
+                          per.repeat_interleave(per)], 1)
+    lay = plan_layout(m, key.numel())
+    plan = torch.zeros(lay["total"], dtype=torch.int64, device=index.device)
+    plan[:m] = counts
+    plan[lay["start"] + 1:lay["start"] + m + 1] = torch.cumsum(counts, 0)
+    plan[lay["n_pieces"]] = pieces.shape[0]
+    plan[lay["order"]:lay["order"] + key.numel()] = torch.sort(key, stable=True).indices
+    plan[lay["pieces"]:lay["pieces"] + pieces.numel()] = pieces.reshape(-1)
+    return plan.to(torch.int32)
+
+
 def check_args(rows: torch.Tensor, index: torch.Tensor, ns: int) -> None:
     """Raise on anything the CUDA kernels do not take."""
     check_tensor("rows", rows, (torch.float32, torch.bfloat16), 2)
@@ -69,39 +115,75 @@ def check_args(rows: torch.Tensor, index: torch.Tensor, ns: int) -> None:
         raise ValueError(f"segsum: unsupported sizes B={b} rows={r} Ns={ns} C={c}")
 
 
-def _sizes(lib, b: int, rows_per_b: int, ns: int, c: int):
+def _sizes(b: int, rows_per_b: int, ns: int, c: int):
     """Ints of the plan, ints of scratch its building takes, 4-byte words of
     scratch a sum at width c takes."""
-    from mvkpconv_tpu_torch.ops import _build
-
     out = (ctypes.c_longlong * 3)()
-    _build.check_launch("segsum_sizes", lib.mvkp_segsum_sizes(b, rows_per_b, ns, c, out))
+    _build.check_launch("segsum_sizes", _build.library().mvkp_segsum_sizes(b, rows_per_b, ns, c, out))
     return int(out[0]), int(out[1]), int(out[2])
 
 
-def segsum_plan(index: torch.Tensor, ns: int) -> torch.Tensor:
-    """The plan of a CUDA ``index`` (B, Nq, K) int32 for ``ns`` targets, built
-    by ``csrc/segsum.cu``'s plan kernels: an int32 tensor that any number of
-    :func:`segsum` calls on this index may share, at any width."""
-    check_tensor("index", index, torch.int32, 3)
-    if index.device.type != "cuda":
-        raise ValueError(f"segsum_plan: unsupported device {index.device}")
-    from mvkpconv_tpu_torch.ops import _build
+torch.library.define("mvkpconv::segsum_plan", "(Tensor index, int ns) -> Tensor")
+torch.library.define("mvkpconv::segsum", "(Tensor rows, Tensor index, Tensor plan, int ns, bool round_bf16) -> Tensor")
+segsum_plan_op = torch.ops.mvkpconv.segsum_plan.default
+segsum_op = torch.ops.mvkpconv.segsum.default
 
-    lib = _build.library()
+
+@torch.library.impl("mvkpconv::segsum_plan", "cuda")
+def _segsum_plan_cuda(index, ns):
+    """The CUDA kernel of ``mvkpconv::segsum_plan``: ``csrc/segsum.cu``'s plan kernels."""
+    check_tensor("index", index, torch.int32, 3)
     b, nq, k = index.shape
-    ints, scratch_ints, _ = _sizes(lib, b, nq * k, ns, 1)
+    ints, scratch_ints, _ = _sizes(b, nq * k, ns, 1)
     plan = torch.empty(ints, dtype=torch.int32, device=index.device)
     scratch = torch.empty(scratch_ints, dtype=torch.int32, device=index.device)
-    with torch.cuda.device(index.device):
-        stream = torch.cuda.current_stream(index.device).cuda_stream
-        rc = lib.mvkp_segsum_plan(index.data_ptr(), plan.data_ptr(), scratch.data_ptr(), b, nq * k, ns, stream)
-    _build.check_launch("segsum_plan", rc)
-    segsum_plan.launches += 1
+    _build.launch("mvkp_segsum_plan", index.device, index.data_ptr(), plan.data_ptr(), scratch.data_ptr(),
+                  b, nq * k, ns)
     return plan
 
 
-segsum_plan.launches = 0
+@torch.library.impl("mvkpconv::segsum", "cuda")
+def _segsum_cuda(rows, index, plan, ns, round_bf16):
+    """The CUDA kernel of ``mvkpconv::segsum``: ``csrc/segsum.cu``'s sum."""
+    check_args(rows, index, ns)
+    b, nq, k = index.shape
+    c = rows.shape[1]
+    ints, _, words = _sizes(b, nq * k, ns, c)
+    check_tensor("plan", plan, torch.int32, 1, device=rows.device)
+    if plan.numel() != ints:
+        raise ValueError(f"segsum: a plan of {plan.numel()} ints is not this index's")
+    out = torch.empty((b, ns, c), dtype=torch.float32, device=rows.device)
+    scratch = torch.empty(words, dtype=torch.float32, device=rows.device)
+    _build.launch("mvkp_segsum_sum", rows.device, rows.data_ptr(), int(rows.dtype == torch.bfloat16),
+                  int(round_bf16), plan.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, nq * k, ns, c)
+    return out
+
+
+torch.library.impl("mvkpconv::segsum_plan", "cpu", segsum_plan_plain)
+
+
+@torch.library.impl("mvkpconv::segsum", "cpu")
+def _segsum_cpu(rows, index, plan, ns, round_bf16):
+    """The CPU kernel of ``mvkpconv::segsum``: the plain version, which reads no plan."""
+    return segsum_plain(rows, index, ns, round_bf16)
+
+
+@torch.library.register_fake("mvkpconv::segsum_plan")
+def _segsum_plan_fake(index, ns):
+    return index.new_empty(plan_layout(index.shape[0] * ns, index.numel())["total"], dtype=torch.int32)
+
+
+@torch.library.register_fake("mvkpconv::segsum")
+def _segsum_fake(rows, index, plan, ns, round_bf16):
+    return rows.new_empty((index.shape[0], ns, rows.shape[-1]), dtype=torch.float32)
+
+
+def segsum_plan(index: torch.Tensor, ns: int) -> torch.Tensor:
+    """The plan of an ``index`` (B, Nq, K) int32 for ``ns`` targets: the
+    operator ``mvkpconv::segsum_plan``, an int32 tensor that any number of
+    :func:`segsum` calls on this index may share, at any width."""
+    check_devices("segsum_plan", index)
+    return segsum_plan_op(index, int(ns))
 
 
 class IndexPlans:
@@ -130,36 +212,12 @@ def attach_plans(index: torch.Tensor) -> torch.Tensor:
 def segsum(rows: torch.Tensor, index: torch.Tensor, ns: int, round_bf16: bool = False,
            plans: IndexPlans | None = None) -> torch.Tensor:
     """(B, Ns, C) f32 segment sums of (B·Nq·K, C) rows by (B, Nq, K) targets;
-    ``round_bf16`` rounds f32 rows to bf16 before the sum. On CUDA the plan
-    of this index for ``ns`` comes from ``plans`` (the index's
-    :class:`IndexPlans`); without them the call builds its own."""
-    if rows.device.type == "cpu" and index.device.type == "cpu":
-        return segsum_plain(rows, index, ns, round_bf16)
-    if rows.device.type != "cuda":
-        raise ValueError(f"segsum: unsupported device {rows.device}")
-    check_args(rows, index, ns)
-    b, nq, k = index.shape
-    c = rows.shape[1]
-    if nq * k == 0:
-        return torch.zeros((b, ns, c), dtype=torch.float32, device=rows.device)
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
-    ints, _, words = _sizes(lib, b, nq * k, ns, c)
+    ``round_bf16`` rounds f32 rows to bf16 before the sum: the operator
+    ``mvkpconv::segsum``, with the plan of this index for ``ns`` from
+    ``plans`` (the index's :class:`IndexPlans`); without them the call
+    builds its own."""
+    check_devices("segsum", rows, index)
+    if index.numel() == 0:
+        return torch.zeros((index.shape[0], ns, rows.shape[-1]), dtype=torch.float32, device=rows.device)
     plan = segsum_plan(index, ns) if plans is None else plans.get(index, ns)
-    if plan.numel() != ints or plan.device != rows.device:
-        raise ValueError(f"segsum: a plan of {plan.numel()} ints on {plan.device} is not this index's")
-    out = torch.empty((b, ns, c), dtype=torch.float32, device=rows.device)
-    scratch = torch.empty(words, dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = lib.mvkp_segsum_sum(
-            rows.data_ptr(), int(rows.dtype == torch.bfloat16), int(round_bf16), plan.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), b, nq * k, ns, c, stream,
-        )
-    _build.check_launch("segsum", rc)
-    segsum.launches += 1
-    return out
-
-
-segsum.launches = 0
+    return segsum_op(rows, index, plan, int(ns), bool(round_bf16))

@@ -1,5 +1,5 @@
 """K5: one convolution site of the frozen UNet, fused — wrapper, plain
-version, launch count.
+version, operator.
 
 No TPU kernel is replaced (the JAX UNet is flax ``nn.Conv`` on XLA); the
 port's float32 UNet ran on cuDNN's FFT GEMM in 2,666 launches a call, and
@@ -34,7 +34,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from mvkpconv_tpu_torch.ops.common import check_tensor
+from mvkpconv_tpu_torch.ops import _build
+from mvkpconv_tpu_torch.ops.common import check_devices, check_tensor
 
 CHUNK = 16  # csrc/unet_conv.cu kBK: the channels of a K chunk
 COLUMNS = 64  # csrc/unet_conv.cu kBN: the output columns of a block
@@ -151,9 +152,6 @@ def _unet_conv_cuda(x, skip, weight, bias, bn_weight, bn_bias, bn_mean, bn_var, 
     """The CUDA kernel of ``mvkpconv::unet_conv``."""
     bn = (bn_weight, bn_bias, bn_mean, bn_var)
     check_args(x, skip, weight, bias, bn, residual, stride, padding, out_h, out_w, transposed)
-    from mvkpconv_tpu_torch.ops import _build
-
-    lib = _build.library()
     b, h, w, c1 = x.shape
     cout = _out_channels(weight, transposed)
     out = torch.empty((b, out_h, out_w, cout), dtype=torch.float32, device=x.device)
@@ -170,15 +168,14 @@ def _unet_conv_cuda(x, skip, weight, bias, bn_weight, bn_bias, bn_mean, bn_var, 
         return None if t is None else t.data_ptr()
 
     if out.numel():
-        with torch.cuda.device(x.device):
-            rc = lib.mvkp_unet_conv(
-                x.data_ptr(), ptr(skip), weight.data_ptr(), ptr(bias), *map(ptr, bn), ptr(residual),
-                out.data_ptr(), b, h, w, c1, c2, h if transposed else out_h, w if transposed else out_w, cout,
-                weight.shape[2], weight.shape[3], stride, padding, int(transposed), int(relu), float(eps),
-                ptr(partial), splits, rows, torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        _build.check_launch("unet_conv", rc)
-        unet_conv.launches += 1 + (splits > 1)  # a split conv's sums are added by a second launch
+        _build.launch(
+            "mvkp_unet_conv", x.device,
+            x.data_ptr(), ptr(skip), weight.data_ptr(), ptr(bias), *map(ptr, bn), ptr(residual),
+            out.data_ptr(), b, h, w, c1, c2, h if transposed else out_h, w if transposed else out_w, cout,
+            weight.shape[2], weight.shape[3], stride, padding, int(transposed), int(relu), float(eps),
+            ptr(partial), splits, rows,
+            count=1 + (splits > 1),  # a split conv's sums are added by a second launch
+        )
     return out
 
 
@@ -207,15 +204,10 @@ def unet_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor
     ``mvkpconv::unet_conv``. ``bn`` is a ``models.norm.BatchNorm`` (its
     running statistics) or None; ``out_size`` defaults to the conv's own
     output size (twice the input's for the transposed conv)."""
-    kinds = {t.device.type for t in (x, weight, skip, residual) if t is not None}
-    if len(kinds) != 1 or kinds - {"cpu", "cuda"}:
-        raise ValueError(f"unet_conv: unsupported devices {sorted(kinds)}")
+    check_devices("unet_conv", x, weight, skip, residual)
     if out_size is None:
         out_size = natural_size(x, weight, stride, padding, transposed)
     vectors = (None,) * 4 if bn is None else (bn.weight, bn.bias, bn.running_mean, bn.running_var)
     eps = 1e-5 if bn is None else bn.epsilon
     return unet_conv_op(x, skip, weight, bias, *vectors, residual, int(stride), int(padding),
                         int(out_size[0]), int(out_size[1]), bool(transposed), bool(relu), float(eps))
-
-
-unet_conv.launches = 0

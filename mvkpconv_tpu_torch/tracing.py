@@ -80,6 +80,8 @@ from typing import Dict, List, Optional
 import torch
 import torch.autograd.profiler as _profiler
 
+from mvkpconv_tpu_torch.ops import _build
+
 PREFIX = "mvkp."  # profiler ranges of the spans
 OUTSIDE = "outside"  # split_profile's name for time outside every span
 
@@ -139,36 +141,11 @@ def _open_spans() -> list:
     return stack
 
 
-_COUNTERS = None
-
-
-def _counters():
-    global _COUNTERS
-    if _COUNTERS is None:
-        from mvkpconv_tpu_torch.ops.kernels import (fps, kpconv, pixel_select, pn2_search, radius_topk, segsum,
-                                                    unet_conv)
-
-        _COUNTERS = (
-            ("radius_topk", radius_topk.radius_topk, "launches"),
-            ("radius_topk_device", radius_topk.radius_topk, "device_launches"),
-            ("pixel_topk", pixel_select.pixel_topk, "launches"),
-            ("segsum", segsum.segsum, "launches"),
-            ("segsum_plan", segsum.segsum_plan, "launches"),
-            ("kpconv_fused_fwd", kpconv.kpconv_fused_fwd, "launches"),
-            ("kpconv_fused_bwd_x", kpconv.kpconv_fused_bwd_x, "launches"),
-            ("kpconv_wf", kpconv.kpconv_wf, "launches"),
-            ("farthest_point_sample", fps.farthest_point_sample, "launches"),
-            ("ball_query", pn2_search.ball_query, "launches"),
-            ("three_nn", pn2_search.three_nn, "launches"),
-            ("unet_conv", unet_conv.unet_conv, "launches"),
-        )
-    return _COUNTERS
-
-
 def launch_counts() -> Dict[str, int]:
-    """Each hand-written kernel wrapper's launch counter as it stands (K1's
-    calls and, as ``radius_topk_device``, its two device launches a call)."""
-    return {name: getattr(fn, attr) for name, fn, attr in _counters()}
+    """Each hand-written kernel's launch counter as it stands, a copy of
+    ``ops/_build.py``'s ``LAUNCHES`` (K1's calls and, as
+    ``radius_topk_device``, its two device launches a call)."""
+    return dict(_build.LAUNCHES)
 
 
 def _event():

@@ -55,6 +55,7 @@ from test_torch_deformable import CONFIGS as DEFORM_CONFIGS  # noqa: E402
 from test_torch_deformable import jitter_witness, padded_batch, recording, torch_pyramid  # noqa: E402
 from test_torch_deformable import setup as deform_setup  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL = dict(rtol=2e-4, atol=2e-5)

@@ -16,6 +16,7 @@ from mvkpconv_tpu.data import chunks as jax_chunks  # noqa: E402
 from mvkpconv_tpu.data import synthetic as jax_synthetic  # noqa: E402
 from mvkpconv_tpu_torch.data import chunks, synthetic  # noqa: E402
 from test_torch_data import assert_same, numpy_fallbacks, scenes  # noqa: E402,F401
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 
 @pytest.mark.parametrize("views", [True, False])

@@ -22,6 +22,7 @@ import torch
 
 from mvkpconv_tpu_torch.tools import test_models, train_scannet
 from mvkpconv_tpu_torch.training.config import KPConfig
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # tests/test_tools.py's TINY, the JAX CLI test size
 TINY = dict(
@@ -31,19 +32,6 @@ TINY = dict(
     batch_num=2, epoch_steps=2, validation_size=2,
     num_views=2, image_height=24, image_width=32,
 )
-
-
-@pytest.fixture(autouse=True)
-def two_threads():
-    """Two intra-op threads for these CPU-heavy steps: the fast tier runs six
-    workers on the host's cores, and with a thread a core in every worker the
-    steps slow down several-fold (on an 8-core host beside five processes
-    multiplying matrices, the early-fusion case took 150 s with the default
-    threads and 65 s with two; 14 and 16 s alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(threads)
 
 
 def write_config(tmp_path, **kw):

@@ -44,6 +44,7 @@ from mvkpconv_tpu_torch.tools import test_colmap  # noqa: E402
 from mvkpconv_tpu_torch.utils.ply import read_ply  # noqa: E402
 from test_torch_io import make_workspace  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 REL = 1e-4
 TINY = dict(

@@ -29,6 +29,7 @@ from mvkpconv_tpu_torch.data.synthetic_batch import make_batch  # noqa: E402
 from mvkpconv_tpu_torch.models.kernel_points import kernel_point_positions  # noqa: E402
 from mvkpconv_tpu_torch.training import config as port_config  # noqa: E402
 from mvkpconv_tpu_torch.training.config import ARCHITECTURE_DEEPER, KPConfig  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 REPO = Path(__file__).resolve().parent.parent
 

@@ -30,6 +30,7 @@ from mvkpconv_tpu_torch.data.prefetch import prefetch  # noqa: E402
 from mvkpconv_tpu_torch.data.scannet_io import load_split  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from mvkpconv_tpu_torch.utils import visualize  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # the CLI test size (tests/test_tools.py's TINY) with views
 SMALL = dict(

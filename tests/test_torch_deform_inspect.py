@@ -38,6 +38,7 @@ from mvkpconv_tpu_torch.models.kpfcnn import KPFCNN  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from mvkpconv_tpu_torch.utils.ply import read_ply  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 ABS = 1e-5
 # tests/test_deform_inspect.py's configuration

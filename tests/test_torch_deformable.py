@@ -65,6 +65,7 @@ from mvkpconv_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step  # noqa: E402
 from test_torch_blocks import assert_close_rel  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 REG_REL = 1e-5

@@ -64,6 +64,7 @@ from mvkpconv_tpu_torch.ops.kernels import pixel_select as k2  # noqa: E402
 from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 PROB_REL = 1e-6
 LOGIT_REL = 1e-4

@@ -54,6 +54,7 @@ from mvkpconv_tpu_torch.ops.common import SHADOW_COORD  # noqa: E402
 from mvkpconv_tpu_torch.ops.kernels import fps  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # tests/test_export.py:119-145: _cfg("none") with num_points (64, 16)
 TINY = dict(

@@ -31,12 +31,13 @@ import __graft_entry__ as graft  # noqa: E402
 from mvkpconv_tpu.models import MVKPConv as JaxMVKPConv  # noqa: E402
 from mvkpconv_tpu.ops.pyramid import build_pyramid as jax_build_pyramid  # noqa: E402
 from mvkpconv_tpu.training.config import KPConfig as JaxConfig  # noqa: E402
+from mvkpconv_tpu_torch import tracing  # noqa: E402
 from mvkpconv_tpu_torch.convert import load_jax_variables  # noqa: E402
 from mvkpconv_tpu_torch.infer import batch_to_device, infer  # noqa: E402
 from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv  # noqa: E402
-from mvkpconv_tpu_torch.ops.kernels import kpconv as K4  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from test_torch_slice import CONFIGS as SLICE_CONFIGS, REL, assert_logits_close, random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 K4_FLAGS = dict(use_pallas_kpconv=True, influence_cache="none")
 SMALL = SLICE_CONFIGS["small"]
@@ -126,7 +127,7 @@ def test_prebuilt_cache_wins_over_the_fused_flag(monkeypatch):
     infer(port_model("early_k4", "float32", variables, influence_cache="prebuilt",
                      influence_cache_budget_mb=1e-6), tb)
     assert len(calls) == 4
-    assert K4.kpconv_fused_fwd.launches == 0  # CPU tensors: the plain version, no launch
+    assert tracing.launch_counts()["kpconv_fused_fwd"] == 0  # CPU tensors: the plain version, no launch
 
 
 @pytest.mark.parametrize("fusion", ["middle", "late"])

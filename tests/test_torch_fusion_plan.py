@@ -31,7 +31,7 @@ from mvkpconv_tpu_torch.ops import gather
 from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
 from mvkpconv_tpu_torch.train import make_trainer, train_steps
 from mvkpconv_tpu_torch.training.config import KPConfig
-from test_torch_cli import two_threads  # noqa: F401  (autouse: two intra-op threads)
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 SMALL = dict(
     in_features_dim=66,

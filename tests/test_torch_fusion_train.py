@@ -41,6 +41,7 @@ from mvkpconv_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step  # noqa: E402
 from test_torch_fusion import CONFIGS, count_fused_calls, setup  # noqa: E402
 from test_torch_train_step import ACC_ABS, TOL, _np_tree, assert_tensors_close  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 MODE = "scatter"
 

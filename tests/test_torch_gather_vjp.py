@@ -34,6 +34,7 @@ from mvkpconv_tpu_torch.ops.kernels import segsum as K3  # noqa: E402
 from mvkpconv_tpu_torch.ops.kernels.segsum import segsum, segsum_plain  # noqa: E402
 from mvkpconv_tpu_torch.training import config as port_config  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -404,6 +405,17 @@ def test_k3_plan_sort_mirror_is_a_stable_sort(case):
     keys = np.where((t >= 0) & (t < ns), t + np.arange(b)[:, None] * ns, b * ns).reshape(-1)
     assert np.array_equal(order, np.argsort(keys, kind="stable"))
     assert passes == {"bench_level0_keys": 2, "k1_one_pass": 1}.get(case, passes)
+    # the plan's plain version (the CPU kernel of mvkpconv::segsum_plan) lists that order
+    m, n = b * ns, keys.size
+    lay = K3.plan_layout(m, n)
+    plan = K3.segsum_plan(torch.from_numpy(index), ns).numpy()
+    counts = np.bincount(keys, minlength=m + 1)[:m]
+    per = [-(-c // K3.LONG) for c in counts if c > K3.LONG]
+    assert plan.size == lay["total"] and np.array_equal(plan[:m], counts)
+    assert np.array_equal(plan[lay["start"]:lay["start"] + m + 1], np.r_[0, np.cumsum(counts)])
+    assert plan[lay["n_pieces"]] == sum(per) and np.array_equal(plan[lay["order"]:lay["order"] + n], order)
+    pieces = plan[lay["pieces"]:lay["pieces"] + 4 * sum(per)].reshape(-1, 4)
+    assert np.array_equal(pieces[:, 1], np.concatenate([np.arange(p) for p in per] or [np.zeros(0, int)]))
 
 
 def test_pyramid_plans_reach_k3_through_the_gather(monkeypatch):

@@ -35,6 +35,7 @@ from mvkpconv_tpu_torch.data import colmap_io as cio  # noqa: E402
 from mvkpconv_tpu_torch.data import scannet_io as sio  # noqa: E402
 from mvkpconv_tpu_torch.utils import ply  # noqa: E402
 from test_torch_data import assert_same  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 PIL = pytest.importorskip("PIL.Image")
 

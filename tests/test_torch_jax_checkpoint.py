@@ -46,6 +46,7 @@ from mvkpconv_tpu_torch.training.jax_checkpoint import (  # noqa: E402
     unpackb,
 )
 from test_torch_slice import CONFIGS, assert_logits_close, jax_logits, setup  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 SIZES = [0, 1, 15, 16, 31, 32, 255, 256, 65535, 65536]
 

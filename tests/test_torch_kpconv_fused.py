@@ -28,7 +28,9 @@ import torch  # noqa: E402
 
 from mvkpconv_tpu.models.kernel_points import kernel_point_positions  # noqa: E402
 from mvkpconv_tpu.ops.pallas.kpconv import _reference_math, kpconv_fused as jax_kpconv_fused  # noqa: E402
+from mvkpconv_tpu_torch import tracing  # noqa: E402
 from mvkpconv_tpu_torch.ops.kernels import kpconv as K4  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 EXTENT = 0.06
 FWD_TOL = dict(rtol=2e-4, atol=2e-5)
@@ -79,9 +81,9 @@ def test_plain_forward_matches_the_tpu_kernel_and_its_oracle(cin, dtype):
     np.testing.assert_allclose(f32(got), f32(jax_kpconv_fused(*jargs, EXTENT, True)), **FWD_TOL)
     np.testing.assert_allclose(f32(got), f32(_reference_math(*jargs, EXTENT)), **FWD_TOL)
     # the wrapper takes the plain version for CPU tensors, and counts no launch
-    before = K4.kpconv_fused_fwd.launches
+    before = tracing.launch_counts()["kpconv_fused_fwd"]
     np.testing.assert_array_equal(f32(K4.kpconv_fused_fwd(*targs, EXTENT)), f32(got))
-    assert K4.kpconv_fused_fwd.launches == before
+    assert tracing.launch_counts()["kpconv_fused_fwd"] == before
 
 
 @pytest.mark.parametrize("via", ["function", "plain"])

@@ -46,6 +46,7 @@ from mvkpconv_tpu_torch.ops.unproject import (  # noqa: E402
     unproject_depth,
     window_anchors,
 )
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 GEOM_ATOL = 1e-5
 PROJ_REL = 2e-5

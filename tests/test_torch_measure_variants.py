@@ -20,6 +20,7 @@ import json
 import torch
 
 from mvkpconv_tpu_torch.tools import measure_variants
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 KEYS = {"miou", "oa", "final_loss", "steps", "minutes", "protocol"}
 ARGS = ["--tiny", "--steps", "2", "--steps-2d", "2", "--train-scenes", "1", "--val-scenes", "1",

@@ -28,6 +28,7 @@ from mvkpconv_tpu_torch.training.steps import make_eval_step
 from portbench import check, harness
 from portbench.traffic.generator import make_pool
 from portbench.weights import calibrate, draw
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 LIMIT = 1e-5
 CENTROIDS = (256, 64, 16, 4)

@@ -23,11 +23,11 @@ from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.infer import batch_to_device
 from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D
 from mvkpconv_tpu_torch.models.pn2 import MAX_NEIGHBORS, RADII
-from mvkpconv_tpu_torch.ops import sampling
-from mvkpconv_tpu_torch.ops.kernels import fps as p1
+from mvkpconv_tpu_torch.ops import _build, sampling
 from mvkpconv_tpu_torch.training.config import KPConfig
 from mvkpconv_tpu_torch.training.init import init_parameters
 from mvkpconv_tpu_torch.training.steps import make_eval_step
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 CENTROIDS = (128, 32, 8, 4)
 B, N, V, H, W = 2, 256, 2, 24, 32
@@ -141,13 +141,13 @@ def test_p1_launches_land_in_pn2_fps(setup, monkeypatch):
     fps = sampling.farthest_point_sample
 
     def counted(*args):
-        p1.farthest_point_sample.launches += 1
+        _build.LAUNCHES["farthest_point_sample"] += 1
         return fps(*args)
 
     from mvkpconv_tpu_torch.models import pn2
 
     monkeypatch.setattr(pn2, "farthest_point_sample", counted)
-    monkeypatch.setattr(p1.farthest_point_sample, "launches", p1.farthest_point_sample.launches)
+    monkeypatch.setitem(_build.LAUNCHES, "farthest_point_sample", _build.LAUNCHES["farthest_point_sample"])
     _, records = traced_call(cfg, net, raw)
     assert [r["launches"] for r in records if r["name"] == "pn2.fps"] == [{"farthest_point_sample": 1}] * 4
     for name in ("pn2.sa", "pn2", "model", "step"):

@@ -51,6 +51,7 @@ from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step 
 from test_torch_deformable import recording  # noqa: E402
 from test_torch_pn2 import SMALL_PN2, SmallJaxMVPNet3D, mvpnet_setup  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = {"scatter": dict(rtol=2e-4, atol=2e-5), "banded_bf16": dict(rtol=5e-2, atol=5e-2)}
 LOSS_REL = {"scatter": 1e-5, "banded_bf16": 1e-3, "pn2": 1e-4}

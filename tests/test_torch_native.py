@@ -31,6 +31,7 @@ from mvkpconv_tpu_torch.data import native, spheres, synthetic  # noqa: E402
 from mvkpconv_tpu_torch.data.calibration import calibrate_budgets  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from test_torch_data import SMALL, assert_same  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 
 @pytest.fixture

@@ -57,6 +57,7 @@ from mvkpconv_tpu_torch.parallel import (
     spawn,
 )
 from mvkpconv_tpu_torch.training.config import KPConfig
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # tests/test_parallel.py:112-124, the KPFCNN of the (data=4, model=2) test
 CFG = dict(

@@ -4,8 +4,10 @@ Ops (``mvkpconv_tpu_torch/ops/``), each contract stated where it is held:
 ``farthest_point_sample`` (indices equal, also with a mask and with more
 samples than points), ``knn`` (indices equal or tied, d² within 1e-6
 absolute), ``ball_query`` (indices equal except radius-boundary cases
-within 1e-5·r²; the padding pinned), ``three_nn_interpolate`` (as close to a float64
-truth as JAX is, a dense point on a key included), the brute-force
+within 1e-5·r²; the padding pinned), the 3-NN interpolation
+(``three_nn`` then ``inverse_distance_interpolate``, as ``FeaturePropagation``
+calls them, as close to a float64 truth as JAX's ``three_nn_interpolate``
+is, a dense point on a key included), the brute-force
 pixel k-NN (equal or tied with JAX's ``method='exact'``). Models: the
 PN2SSG and MVPNet3D forwards in eval mode, JAX variables bridged by
 ``convert.py``, logits within 1e-4·max|logit| (MVPNet3D with poses, the
@@ -38,12 +40,13 @@ from mvkpconv_tpu_torch.convert import load_jax_variables  # noqa: E402
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch  # noqa: E402
 from mvkpconv_tpu_torch.models.mvpnet3d import MVPNet3D  # noqa: E402
 from mvkpconv_tpu_torch.models.pn2 import PN2SSG  # noqa: E402
-from mvkpconv_tpu_torch.ops.interpolate import three_nn_interpolate  # noqa: E402
+from mvkpconv_tpu_torch.ops.interpolate import inverse_distance_interpolate  # noqa: E402
 from mvkpconv_tpu_torch.ops.neighbors import ball_query, knn, three_nn  # noqa: E402
 from mvkpconv_tpu_torch.ops.sampling import farthest_point_sample  # noqa: E402
 from mvkpconv_tpu_torch.ops.unproject import points_to_pixel_knn  # noqa: E402
 from mvkpconv_tpu_torch.training.init import init_parameters  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # PN2SSG cut to test size (tests/test_models.py's centroids)
 SMALL_PN2 = dict(num_centroids=(64, 16, 8, 4))
@@ -143,10 +146,12 @@ def interpolate_f64(dense, sparse, feat, idx):
 
 
 def test_three_nn_interpolate_matches_jax(rng):
-    """Each package against a float64 truth on its own neighbors (equal
-    here), with a quarter of the dense points on a key as at FP3, where
-    every centroid is a dense point (d² exactly 0 there in both packages:
-    the weight is 1/1e-10). Elsewhere JAX's expansion form rounds with
+    """The port's 3-NN interpolation, as ``FeaturePropagation`` makes it
+    (``three_nn``, then ``inverse_distance_interpolate``), and JAX's
+    ``three_nn_interpolate``, each package against a float64 truth on its
+    own neighbors (equal here), with a quarter of the dense points on a key
+    as at FP3, where every centroid is a dense point (d² exactly 0 there in
+    both packages: the weight is 1/1e-10). Elsewhere JAX's expansion form rounds with
     ‖q‖², not d², so the weights 1/d² of close neighbors follow it; the
     port takes the difference form of the published CUDA op
     (``common.difference_sq_dists``), whose rounding scales with d². The
@@ -158,9 +163,10 @@ def test_three_nn_interpolate_matches_jax(rng):
     sparse = dense[:, ::4].copy()
     feat = rng.randn(2, 128, 16).astype(np.float32)
     want = np.asarray(jax.jit(jax_interp.three_nn_interpolate)(dense, sparse, feat))
-    got = three_nn_interpolate(T(dense), T(sparse), T(feat)).numpy()
+    index, sqdist = three_nn(T(dense), T(sparse))  # FeaturePropagation.forward's two calls
+    got = inverse_distance_interpolate(T(feat), index, sqdist).numpy()
     want_idx = np.asarray(jax.jit(functools.partial(jax_nb.knn, k=3))(dense, sparse)[0])
-    got_idx = three_nn(T(dense), T(sparse))[0].numpy()
+    got_idx = index.numpy()
     np.testing.assert_array_equal(got_idx, want_idx)
     jax_err = want - interpolate_f64(dense, sparse, feat, want_idx)
     port_err = got - interpolate_f64(dense, sparse, feat, got_idx)

@@ -25,8 +25,9 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from mvkpconv_tpu_torch import tracing
-from mvkpconv_tpu_torch.ops import neighbors
+from mvkpconv_tpu_torch.ops import _build, neighbors
 from mvkpconv_tpu_torch.ops.kernels import pn2_search as p2
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 ROOM = np.array([3.1, 5.7, 1.3], np.float32)  # clouds at room coordinates: the subtraction rounds
 DEVICES = ["cpu", "cuda"]
@@ -236,4 +237,6 @@ def test_fake_kernels_export_and_checks():
 def test_both_searches_have_launch_counters():
     counts = tracing.launch_counts()
     assert {"ball_query", "three_nn"} <= set(counts)
-    assert counts["ball_query"] == p2.ball_query.launches and counts["three_nn"] == p2.three_nn.launches
+    assert counts["ball_query"] == _build.LAUNCHES["ball_query"] and counts["three_nn"] == _build.LAUNCHES["three_nn"]
+    assert (_build.SIGNATURES["mvkp_ball_query"][0], _build.SIGNATURES["mvkp_three_nn"][0]) == (
+        {"ball_query": 1}, {"three_nn": 1})

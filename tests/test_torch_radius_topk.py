@@ -35,6 +35,7 @@ from mvkpconv_tpu_torch.ops.kernels import kpconv as k4
 from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.training.config import KPConfig
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 SMALL = dict(
     fusion="early", in_features_dim=66, num_points=(1024, 256, 64, 32, 16),

@@ -59,6 +59,7 @@ from mvkpconv_tpu_torch.training.trainer import Trainer  # noqa: E402
 from test_torch_deformable import CONFIGS, padded_batch  # noqa: E402
 from test_torch_jax_checkpoint import cases, msgpack  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 KW = {

@@ -42,6 +42,7 @@ from mvkpconv_tpu_torch.models.mvkpconv import MVKPConv  # noqa: E402
 from mvkpconv_tpu_torch.ops.pyramid import Pyramid  # noqa: E402
 from mvkpconv_tpu_torch.train import make_trainer  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 REL = {"float32": 1e-4, "bfloat16": 2e-2}
 

@@ -43,6 +43,7 @@ from mvkpconv_tpu_torch.utils import visualize  # noqa: E402
 from test_torch_cli import TINY  # noqa: E402
 from test_torch_data import scenes  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 
 def test_evaluate_frames_matches_jax():

@@ -42,6 +42,7 @@ from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from mvkpconv_tpu_torch.utils import html_viewer  # noqa: E402
 from test_torch_data import assert_same  # noqa: E402
 from test_torch_io import same_module_body, write_scan  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 
 def run_both(capsys, port_main, jax_main, port_argv, jax_argv=None):

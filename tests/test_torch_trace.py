@@ -29,11 +29,11 @@ import torch
 from mvkpconv_tpu_torch import tracing
 from mvkpconv_tpu_torch.data.synthetic_batch import make_batch
 from mvkpconv_tpu_torch.infer import batch_to_device, make_model
-from mvkpconv_tpu_torch.ops import neighbors
-from mvkpconv_tpu_torch.ops.kernels import radius_topk as k1
+from mvkpconv_tpu_torch.ops import _build, neighbors
 from mvkpconv_tpu_torch.ops.pyramid import build_pyramid
 from mvkpconv_tpu_torch.training.config import KPConfig
 from mvkpconv_tpu_torch.training.steps import make_eval_step
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # tests/test_torch_export.py's configuration, two spheres
 TINY = dict(
@@ -130,6 +130,30 @@ def test_k1_row_counters_equal_the_pyramid_masks(fusion):
     assert got[0] == (2 * 128, 128 + 100)
 
 
+def test_every_kernel_launch_is_an_operator_with_a_counter():
+    """Each kernel launch of ``ops/_build.py``'s ``SIGNATURES`` (the
+    package's one list of kernels) is made by the CUDA kernel of an
+    operator ``mvkpconv::<its first counter>``, which also has a CPU kernel
+    (the plain version) and a fake kernel; its counters are keys of
+    ``tracing.launch_counts()``, whose names the benchmark reads."""
+    import importlib
+    import pkgutil
+
+    from mvkpconv_tpu_torch.ops import kernels
+
+    for mod in pkgutil.iter_modules(kernels.__path__):
+        importlib.import_module(f"{kernels.__name__}.{mod.name}")
+    launches = {symbol: counters for symbol, (counters, _) in _build.SIGNATURES.items() if counters}
+    for symbol, counters in launches.items():
+        name = f"mvkpconv::{next(iter(counters))}"
+        for key in ("CPU", "CUDA", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), (symbol, name, key)
+    counts = tracing.launch_counts()
+    assert set(counts) == {name for counters in launches.values() for name in counters} == {
+        "radius_topk", "radius_topk_device", "pixel_topk", "segsum", "segsum_plan", "kpconv_fused_fwd",
+        "kpconv_fused_bwd_x", "kpconv_wf", "farthest_point_sample", "ball_query", "three_nn", "unet_conv"}
+
+
 @pytest.mark.parametrize("fusion", FUSIONS)
 def test_launch_deltas_add_up_to_the_counters(fusion, monkeypatch):
     """K1's wrapper counts launches only on the card: here a stand-in counts
@@ -138,13 +162,13 @@ def test_launch_deltas_add_up_to_the_counters(fusion, monkeypatch):
     select = neighbors.radius_topk
 
     def counted(*args):
-        k1.radius_topk.launches += 1
-        k1.radius_topk.device_launches += 2
+        _build.LAUNCHES["radius_topk"] += 1
+        _build.LAUNCHES["radius_topk_device"] += 2
         return select(*args)
 
     monkeypatch.setattr(neighbors, "radius_topk", counted)
-    monkeypatch.setattr(k1.radius_topk, "launches", k1.radius_topk.launches)
-    monkeypatch.setattr(k1.radius_topk, "device_launches", k1.radius_topk.device_launches)
+    for name in ("radius_topk", "radius_topk_device"):
+        monkeypatch.setitem(_build.LAUNCHES, name, _build.LAUNCHES[name])
     before = tracing.launch_counts()
     _, records = traced_calls(cfg, model, raw)
     after = tracing.launch_counts()

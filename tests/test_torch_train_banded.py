@@ -12,6 +12,7 @@ import pytest
 pytest.importorskip("jax")
 
 from test_torch_train_step import batches, check_run, jax_run, port_run  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 
 @pytest.mark.parametrize("mode", ["banded", "banded_bf16"])

@@ -23,6 +23,7 @@ from mvkpconv_tpu_torch.training.optim import make_optimizer  # noqa: E402
 from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step  # noqa: E402
 from test_torch_slice import CONFIGS, setup  # noqa: E402
 from test_torch_train_step import TOL, batches, check_run, port_model  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 # The one port step from JAX's state after step 2 leaves the tolerance on
 # these tensors (unpadded batch, |Δ| over the allowance: 2.48, 2.35, 1.28

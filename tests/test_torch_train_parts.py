@@ -34,6 +34,7 @@ from mvkpconv_tpu_torch.training import metrics as Met  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
 from mvkpconv_tpu_torch.training.losses import segmentation_cross_entropy  # noqa: E402
 from mvkpconv_tpu_torch.training.optim import make_optimizer  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

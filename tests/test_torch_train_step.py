@@ -57,6 +57,7 @@ from mvkpconv_tpu_torch.training.steps import (  # noqa: E402
     make_train_step,
 )
 from test_torch_slice import CONFIGS, setup  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = {
     "scatter": dict(rtol=2e-4, atol=2e-5),

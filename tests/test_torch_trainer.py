@@ -79,6 +79,7 @@ from mvkpconv_tpu_torch.training.steps import forward_backward, make_train_step 
 from mvkpconv_tpu_torch.training.trainer import Trainer  # noqa: E402
 from mvkpconv_tpu_torch.training.transfer import load_2d_checkpoint  # noqa: E402
 from test_torch_slice import random_variables  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 TOL = dict(rtol=2e-4, atol=2e-5)
 ACC_ABS = 5e-3

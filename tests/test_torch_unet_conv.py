@@ -35,6 +35,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 
 from mvkpconv_tpu_torch.models.unet2d import BasicBlock, UNetResNet34, _ConvBlock, _DeconvBlock, _site
 from mvkpconv_tpu_torch.ops.kernels import unet_conv as k5
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 SITES = 45  # convolution sites of a UNet-ResNet34 forward: one launch each on the card
 

@@ -24,6 +24,7 @@ from mvkpconv_tpu.training.config import KPConfig as JaxConfig  # noqa: E402
 from mvkpconv_tpu_torch.data import native, spheres, synthetic  # noqa: E402
 from mvkpconv_tpu_torch.eval import evaluator, voting  # noqa: E402
 from mvkpconv_tpu_torch.training.config import KPConfig  # noqa: E402
+from torch_threads import two_threads  # noqa: F401,E402  (autouse: two intra-op threads)
 
 CFG = dict(
     fusion="none", in_features_dim=2, num_points=(256, 64), first_subsampling_dl=0.1,
